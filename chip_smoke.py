@@ -6,14 +6,19 @@
 Phases, each ending with one line that gives its own seconds:
   1. device: torch and CUDA versions, the card's name and power limit;
   2. build: both CUDA kernels with nvcc (in parallel), with the
-     registers / shared memory that `-Xptxas -v` reports;
+     registers / shared memory that `-Xptxas -v` reports and the size of
+     each kernel's largest loop in machine instructions;
   3. the pair-weight kernel against its plain PyTorch version at B=16,
-     C=1720: W within 5e-5, counts within 2, W bitwise symmetric, zero
-     diagonal; CUDA-event times of both;
-  4. the power-iteration kernel against its plain version at B=16,
-     C=1720, 30 iterations: per-pair eigenvector cosine >= 1 - 1e-4; times
-     of both and of a torch.bmm loop (the library yardstick, never used
-     by the port);
+     C=1720 and at the ragged edges B in {1, 3}, C in {1, 5, 63, 64, 65,
+     1722}: W within 5e-5, counts within 2, W bitwise symmetric, zero
+     diagonal, two launches bitwise equal; CUDA-event times of the
+     kernel's launch alone (packed inputs and outputs allocated once), of
+     the whole wrapper and of the plain version;
+  4. the power-iteration kernel against its plain version at the same
+     shapes, 30 iterations: per-pair eigenvector cosine >= 1 - 1e-4, two
+     launches bitwise equal, v kept at 1 when h = 0; its cluster size;
+     times of its launch, its wrapper, the plain version and a torch.bmm
+     loop (the library yardstick, never used by the port);
   5. the flagship pipeline (3 steps, suncg 160x640, 1720 correspondences,
      irls+sm with 30 power iterations, full-width bf16 SCNet with weights
      from a fixed seed) on 16 synthetic pairs, with the pair-weight kernel
@@ -39,6 +44,7 @@ import time
 
 BUDGET_S = 900.0          # hard limit for the whole run, build included
 B, C, ITERS = 16, 1720, 30
+RAGGED_B, RAGGED_C = (1, 3), (1, 5, 63, 64, 65, 1722)   # tile/cluster edges
 # f32 operations per W entry in csrc/pair_weight.cu, counted from its
 # source (sqrt, division, exp and arccos one each): 12 for the two edge
 # lengths, 6 differences, 9 for d2 and the distance tests, 4 inverse
@@ -103,34 +109,66 @@ def phase_build():
             f"{k.build_seconds:.1f} s"
         print(f"built {k.name} ({k.source.name}): {secs}; "
               f"{k.ptxas_info}", flush=True)
+        n, ops = largest_loop(k)
+        print(f"{k.name}: largest loop {n} machine instructions "
+              f"(cuobjdump -sass): {ops}", flush=True)
 
 
-def kernel_inputs(seed=0):
-    """Correspondence components at the path's shape, from a numpy seed:
-    positions in a room-sized box, targets moved by a rigid motion plus
-    noise with a fifth of them outliers, unit normals, affinities, the
-    0.99 marker on unobserved ends and some invalid correspondences."""
+def largest_loop(kernel):
+    """Instruction count and opcode histogram of the largest loop (a
+    backward branch and the code it jumps back over) in a built kernel's
+    machine code; in the pair-weight kernel that is the body computing one
+    entry of W."""
+    import collections
+    import re
+    from relativepose_tpu_torch.ops import kernels
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(kernel._lib_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    ins = []
+    for line in sass.splitlines():
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            words = m.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            ins.append((int(m.group(1), 16), op, words[-1]))
+    start, end = 0, -1
+    for addr, op, target in ins:
+        if op == "BRA" and int(target, 16) < addr and \
+                addr - int(target, 16) > end - start:
+            start, end = int(target, 16), addr
+    ops = collections.Counter(op.split(".")[0] for a, op, _ in ins
+                              if start <= a <= end)
+    return sum(ops.values()), ops.most_common(10)
+
+
+def kernel_inputs(seed, b, c):
+    """Correspondence components at [b, c], from a numpy seed: positions
+    in a room-sized box, targets moved by a rigid motion plus noise with a
+    fifth of them outliers, unit normals, affinities, the 0.99 marker on
+    unobserved ends and some invalid correspondences."""
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
-    ps = rng.uniform(-3, 3, (B, C, 3))
-    ang = rng.uniform(-np.pi, np.pi, B)
-    R = np.zeros((B, 3, 3))
+    ps = rng.uniform(-3, 3, (b, c, 3))
+    ang = rng.uniform(-np.pi, np.pi, b)
+    R = np.zeros((b, 3, 3))
     R[:, 0, 0] = R[:, 2, 2] = np.cos(ang)
     R[:, 0, 2], R[:, 2, 0] = np.sin(ang), -np.sin(ang)
     R[:, 1, 1] = 1.0
-    pt = ps @ R.transpose(0, 2, 1) + rng.uniform(-0.5, 0.5, (B, 1, 3))
-    pt += 0.02 * rng.randn(B, C, 3)
-    out = rng.rand(B, C) < 0.2
+    pt = ps @ R.transpose(0, 2, 1) + rng.uniform(-0.5, 0.5, (b, 1, 3))
+    pt += 0.02 * rng.randn(b, c, 3)
+    out = rng.rand(b, c) < 0.2
     pt[out] = rng.uniform(-3, 3, (int(out.sum()), 3))
-    ns = rng.randn(B, C, 3)
+    ns = rng.randn(b, c, 3)
     ns /= np.linalg.norm(ns, axis=-1, keepdims=True)
-    nt = ns @ R.transpose(0, 2, 1) + 0.05 * rng.randn(B, C, 3)
+    nt = ns @ R.transpose(0, 2, 1) + 0.05 * rng.randn(b, c, 3)
     nt /= np.linalg.norm(nt, axis=-1, keepdims=True)
-    f = rng.rand(B, C)
-    w_s = np.where(rng.rand(B, C) > 0.3, 1.0, 0.99)
-    w_t = np.where(rng.rand(B, C) > 0.3, 1.0, 0.99)
-    cvalid = rng.rand(B, C) > 0.05
+    f = rng.rand(b, c)
+    w_s = np.where(rng.rand(b, c) > 0.3, 1.0, 0.99)
+    w_t = np.where(rng.rand(b, c) > 0.3, 1.0, 0.99)
+    cvalid = rng.rand(b, c) > 0.05
 
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device="cuda")
@@ -139,35 +177,108 @@ def kernel_inputs(seed=0):
             dev(cvalid, torch.bool))
 
 
+def power_h(seed, b, c):
+    """Spectral-matching h at [b, c]: nonnegative, some entries zero."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(np.maximum(50.0 - rng.exponential(20.0, (b, c)),
+                                      0), dtype=torch.float32, device="cuda")
+
+
+def check_pair_weight(args, hp):
+    """K1 against its plain version on one input: W within 5e-5, counts
+    within 2, W bitwise symmetric with a zero diagonal, and two launches
+    bitwise equal (W and count partials).  Returns (W, counts, max |W -
+    plain|, largest count difference)."""
+    import torch
+    from relativepose_tpu_torch.ops import kernels
+    W, counts = kernels.pair_weight_matrix(*args, hp)
+    W0, counts0 = kernels.pair_weight_matrix_plain(*args, hp)
+    torch.cuda.synchronize()
+    shape = tuple(W.shape)
+    err = float((W - W0).abs().max())
+    if not err <= 5e-5:
+        raise AssertionError(f"pair_weight_matrix {shape}: max |W - plain| "
+                             f"{err}")
+    dc = max(int((counts[k] - counts0[k]).abs().max()) for k in counts)
+    if dc > 2:
+        raise AssertionError(f"pair_weight_matrix {shape}: counts off by "
+                             f"{dc}")
+    if not torch.equal(W, W.transpose(-1, -2)):
+        raise AssertionError(f"pair_weight_matrix {shape}: W is not bitwise "
+                             "symmetric")
+    if bool((torch.diagonal(W, dim1=-2, dim2=-1) != 0).any()):
+        raise AssertionError(f"pair_weight_matrix {shape}: nonzero diagonal")
+    comps = kernels.pack_components(*args)
+    runs = []
+    for _ in range(2):
+        out = (torch.empty_like(W),
+               torch.empty((shape[0], kernels.pair_weight_tiles(shape[1]), 3),
+                           dtype=torch.int32, device="cuda"))
+        kernels.pair_weight_launch(comps, hp, *out)
+        runs.append(out)
+    if not (torch.equal(runs[0][0], runs[1][0]) and torch.equal(W, runs[0][0])
+            and torch.equal(runs[0][1], runs[1][1])):
+        raise AssertionError(f"pair_weight_matrix {shape}: two launches "
+                             "differ")
+    return W, counts, err, dc
+
+
+def check_power(W, h):
+    """K2 against its plain version on one input: per-pair cosine >=
+    1 - 1e-4 and two launches bitwise equal.  Returns (min cosine, max
+    |u - plain|)."""
+    import torch
+    from relativepose_tpu_torch.ops import kernels
+    u = kernels.power_iteration(W, h, ITERS)
+    u0 = kernels.power_iteration_plain(W, h, ITERS)
+    u2 = torch.empty_like(u)
+    kernels.power_iteration_launch(W, h, ITERS, u2)
+    torch.cuda.synchronize()
+    shape = tuple(W.shape)
+    cos = torch.nn.functional.cosine_similarity(u, u0, dim=-1)
+    if not bool((cos >= 1 - 1e-4).all()):
+        raise AssertionError(f"power_iteration {shape}: cosine "
+                             f"{cos.min().item()}")
+    if not torch.equal(u, u2):
+        raise AssertionError(f"power_iteration {shape}: two launches differ")
+    return cos.min().item(), float((u - u0).abs().max())
+
+
 def phase_pair_weight():
     import torch
     from relativepose_tpu_torch.match.solver import SolverHyperParams
     from relativepose_tpu_torch.ops import kernels
-    args = kernel_inputs()
     hp = SolverHyperParams()
-    W, counts = kernels.pair_weight_matrix(*args, hp)
-    W0, counts0 = kernels.pair_weight_matrix_plain(*args, hp)
-    torch.cuda.synchronize()
-    err = float((W - W0).abs().max())
-    if not err <= 5e-5:
-        raise AssertionError(f"pair_weight_matrix: max |W - plain| {err}")
-    for k in counts:
-        d = int((counts[k] - counts0[k]).abs().max())
-        if d > 2:
-            raise AssertionError(f"pair_weight_matrix: count {k} off by {d}")
-    if not torch.equal(W, W.transpose(-1, -2)):
-        raise AssertionError("pair_weight_matrix: W is not bitwise symmetric")
-    if bool((torch.diagonal(W, dim1=-2, dim2=-1) != 0).any()):
-        raise AssertionError("pair_weight_matrix: nonzero diagonal")
-    ms = cuda_ms(lambda: kernels.pair_weight_matrix(*args, hp), 20)
+    errs, dcs = [], []
+    for b in RAGGED_B:
+        for c in RAGGED_C:
+            _, _, err, dc = check_pair_weight(kernel_inputs(2, b, c), hp)
+            errs.append(err)
+            dcs.append(dc)
+    print(f"pair_weight_matrix at B in {RAGGED_B}, C in {RAGGED_C}: max "
+          f"|W - plain| {max(errs):.3e}, counts off by at most {max(dcs)}; "
+          "bitwise symmetric, zero diagonal, two launches equal", flush=True)
+
+    args = kernel_inputs(0, B, C)
+    W, counts, err, dc = check_pair_weight(args, hp)
+    comps = kernels.pack_components(*args)
+    W1 = torch.empty_like(W)
+    parts = torch.empty((B, kernels.pair_weight_tiles(C), 3),
+                        dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: kernels.pair_weight_launch(comps, hp, W1, parts), 50)
+    wrapper_ms = cuda_ms(lambda: kernels.pair_weight_matrix(*args, hp), 20)
     plain_ms = cuda_ms(lambda: kernels.pair_weight_matrix_plain(*args, hp), 3)
     entries = B * C * (C - 1) / 2   # the least work: one triangle
     t_ops = entries * OPS_PER_W_ENTRY / PEAK_F32
     t_bytes = B * (16 * C * 4 + C * C * 4 + 3 * 4) / PEAK_BYTES
     nonzero = float((W != 0).float().mean())
-    print(f"pair_weight_matrix B={B} C={C}: max_abs_err {err:.3e}, "
-          f"counts {[int(counts[k][0]) for k in counts]} (pair 0), "
-          f"nonzero share {nonzero:.4f}; kernel {ms:.4f} ms, "
+    print(f"pair_weight_matrix wrapper (pack, allocate, launch, sum the "
+          f"partials) B={B} C={C}: {wrapper_ms:.4f} ms", flush=True)
+    print(f"pair_weight_matrix B={B} C={C}: max_abs_err {err:.3e}, counts "
+          f"off by at most {dc}, counts {[int(counts[k][0]) for k in counts]}"
+          f" (pair 0), nonzero share {nonzero:.4f}; launch {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms", flush=True)
     return W, dict(name="pair_weight_matrix", route="cuda",
                    source="relativepose_tpu_torch/csrc/pair_weight.cu",
@@ -179,19 +290,33 @@ def phase_pair_weight():
 
 
 def phase_power(W):
-    import numpy as np
     import torch
+    from relativepose_tpu_torch.match.solver import SolverHyperParams
     from relativepose_tpu_torch.ops import kernels
-    rng = np.random.RandomState(1)
-    h = torch.as_tensor(np.maximum(50.0 - rng.exponential(20.0, (B, C)), 0),
-                        dtype=torch.float32, device="cuda")
-    u = kernels.power_iteration(W, h, ITERS)
-    u0 = kernels.power_iteration_plain(W, h, ITERS)
-    torch.cuda.synchronize()
-    cos = torch.nn.functional.cosine_similarity(u, u0, dim=-1)
-    if not bool((cos >= 1 - 1e-4).all()):
-        raise AssertionError(f"power_iteration: cosine {cos.min().item()}")
-    err = float((u - u0).abs().max())
+    info = kernels.power_iteration_info(C)
+    print(f"power_iteration: clusters of {info['cluster']} blocks of "
+          f"{info['threads']} threads, one per pair; the card runs "
+          f"{info['max_active_clusters']} clusters at once at C={C}",
+          flush=True)
+    hp = SolverHyperParams()
+    coss, errs = [], []
+    for b in RAGGED_B:
+        for c in RAGGED_C:
+            Wr, _ = kernels.pair_weight_matrix_plain(*kernel_inputs(3, b, c),
+                                                     hp)
+            cos, err = check_power(Wr, power_h(4, b, c))
+            coss.append(cos)
+            errs.append(err)
+    u = kernels.power_iteration(Wr, torch.zeros(Wr.shape[:2], device="cuda"),
+                                ITERS)
+    if not torch.equal(u, torch.ones_like(u)):
+        raise AssertionError("power_iteration: h = 0 does not keep v = 1")
+    print(f"power_iteration at B in {RAGGED_B}, C in {RAGGED_C}: min cosine "
+          f"{min(coss):.7f}, max |u - plain| {max(errs):.3e}, two launches "
+          "equal; h = 0 keeps v = 1", flush=True)
+
+    h = power_h(1, B, C)
+    cos, err = check_power(W, h)
 
     def bmm_loop():
         v = torch.ones_like(h)
@@ -202,15 +327,22 @@ def phase_power(W):
             v = torch.where(n > 1e-12, y / n.clamp(min=1e-12), v)
         return v
 
-    ms = cuda_ms(lambda: kernels.power_iteration(W, h, ITERS), 10)
+    u = torch.empty_like(h)
+    ms = cuda_ms(lambda: kernels.power_iteration_launch(W, h, ITERS, u), 20)
+    wrapper_ms = cuda_ms(lambda: kernels.power_iteration(W, h, ITERS), 20)
     plain_ms = cuda_ms(lambda: kernels.power_iteration_plain(W, h, ITERS), 5)
     library_ms = cuda_ms(bmm_loop, 5)
     t_ops = ITERS * B * (4 * C * C + 6 * C) / PEAK_F32
     t_bytes = B * (C * C + 2 * C) * 4 / PEAK_BYTES
+    print(f"power_iteration wrapper (allocate, launch) B={B} C={C}: "
+          f"{wrapper_ms:.4f} ms", flush=True)
+    w_bytes = ITERS * B * C * C * 4   # W streamed every iteration
     print(f"power_iteration B={B} C={C} iters={ITERS}: min cosine "
-          f"{cos.min().item():.7f}, max_abs_err {err:.3e}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bmm loop "
-          f"{library_ms:.4f} ms", flush=True)
+          f"{cos:.7f}, max_abs_err {err:.3e}; launch {ms:.4f} ms "
+          f"(streaming W every iteration: floor "
+          f"{1e3 * w_bytes / PEAK_BYTES:.4f} ms, "
+          f"{w_bytes / ms / 1e9:.3f} TB/s), plain {plain_ms:.4f} ms, bmm "
+          f"loop {library_ms:.4f} ms", flush=True)
     return dict(name="power_iteration", route="cuda",
                 source="relativepose_tpu_torch/csrc/power_iteration.cu",
                 replaces=kernels.POWER_ITER.replaces, max_abs_err=err, ms=ms,

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -123,7 +124,6 @@ def _nvcc():
 PAIR_WEIGHT = CudaKernel(
     "pair_weight_matrix", "pair_weight.cu", "rp_pair_weight_matrix",
     [_P, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P],
-    extra_flags=("--fmad=false",),
     replaces="relativepose_tpu/ops/pallas_kernels.py:213")
 POWER_ITER = CudaKernel(
     "power_iteration", "power_iteration.cu", "rp_power_iteration",
@@ -255,6 +255,33 @@ def pack_components(ps, pt, ns, nt, f, obs_prod, cvalid):
         dim=-2).to(torch.float32).contiguous()
 
 
+def pair_weight_tiles(c):
+    """Blocks per pair of the CUDA kernel: the 64x64 tile pairs (I <= J)
+    of the upper triangle (TILE = 64 in csrc/pair_weight.cu)."""
+    t = (c + 63) // 64
+    return t * (t + 1) // 2
+
+
+def pair_weight_launch(comps, hp, W, partials):
+    """One launch of the CUDA kernel on packed components [B, 16, C]
+    (`pack_components`) into W [B, C, C] and the count partials
+    [B, pair_weight_tiles(C), 3] int32; nothing is launched (or counted)
+    when B or C is 0.  The constants are folded on the host in double
+    precision: -log2(e) / (2 sigma^2) for the exponent (the kernel uses
+    exp2) and the squared thresholds, as the plain version computes
+    them."""
+    b, _, c = comps.shape
+    if b == 0 or c == 0:
+        return
+    k = -math.log2(math.e) / 2.0
+    PAIR_WEIGHT.call(
+        comps.device, comps.data_ptr(), b, c,
+        k / float(hp.sigma_dist) ** 2, k / float(hp.sigma_angle1) ** 2,
+        k / float(hp.sigma_angle2) ** 2, float(hp.dist_thre) ** 2,
+        1.5 * float(hp.dist_sep_thre) ** 2, float(hp.angle_thre) ** 2,
+        W.data_ptr(), partials.data_ptr())
+
+
 def pair_weight_matrix(ps, pt, ns, nt, f, obs_prod, cvalid, hp):
     """W [B, C, C] and counts, as `pair_weight_matrix_plain` returns them.
 
@@ -269,15 +296,10 @@ def pair_weight_matrix(ps, pt, ns, nt, f, obs_prod, cvalid, hp):
     if comps.dim() != 3 or comps.shape[1] != 16:
         raise ValueError(f"pair_weight_matrix: bad shape {tuple(ps.shape)}")
     b, _, c = comps.shape
-    tiles = (c + 63) // 64  # TILE = 64 in csrc/pair_weight.cu
     W = torch.empty((b, c, c), dtype=torch.float32, device=comps.device)
-    partials = torch.empty((b, tiles * tiles, 3), dtype=torch.int32,
+    partials = torch.empty((b, pair_weight_tiles(c), 3), dtype=torch.int32,
                            device=comps.device)
-    PAIR_WEIGHT.call(
-        comps.device, comps.data_ptr(), b, c, float(hp.sigma_angle1),
-        float(hp.sigma_angle2), float(hp.sigma_dist), float(hp.dist_thre),
-        float(hp.dist_sep_thre), float(hp.angle_thre), W.data_ptr(),
-        partials.data_ptr())
+    pair_weight_launch(comps, hp, W, partials)
     totals = partials.sum(dim=1, dtype=torch.int32)
     counts = {"dist": totals[:, 0], "dist_angle": totals[:, 1],
               "nonzero_w": totals[:, 2]}
@@ -301,6 +323,32 @@ def power_iteration_plain(W, h, iters: int):
     return v
 
 
+def power_iteration_launch(W, h, iters, u):
+    """One launch of the CUDA kernel: W [B, C, C], h [B, C] -> u [B, C];
+    nothing is launched (or counted) when B or C is 0."""
+    b, c = h.shape
+    if b == 0 or c == 0:
+        return
+    POWER_ITER.call(W.device, W.data_ptr(), h.data_ptr(), b, c, int(iters),
+                    u.data_ptr())
+
+
+def power_iteration_info(c):
+    """The CUDA kernel's cluster size, threads per block and how many
+    clusters (pairs) the current card runs at once at size C."""
+    if POWER_ITER.lib is None:
+        build_kernels()
+    fn = POWER_ITER.lib.rp_power_iteration_info
+    fn.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
+    fn.restype = ctypes.c_int
+    out = [_I() for _ in range(3)]
+    rc = fn(c, *[ctypes.byref(o) for o in out])
+    if rc != 0:
+        raise RuntimeError(f"power_iteration: CUDA error {rc} in info")
+    return dict(zip(("cluster", "threads", "max_active_clusters"),
+                    (o.value for o in out)))
+
+
 def power_iteration(W, h, iters: int):
     """`power_iteration_plain` on the CPU, the CUDA kernel on CUDA."""
     if W.device.type == "cpu":
@@ -309,8 +357,6 @@ def power_iteration(W, h, iters: int):
     if W.dim() != 3 or W.shape[1] != W.shape[2] or h.shape != W.shape[:2]:
         raise ValueError(f"power_iteration: bad shapes {tuple(W.shape)} "
                          f"{tuple(h.shape)}")
-    b, c = h.shape
-    u = torch.empty((b, c), dtype=torch.float32, device=W.device)
-    POWER_ITER.call(W.device, W.data_ptr(), h.data_ptr(), b, c, int(iters),
-                    u.data_ptr())
+    u = torch.empty(h.shape, dtype=torch.float32, device=W.device)
+    power_iteration_launch(W, h, iters, u)
     return u

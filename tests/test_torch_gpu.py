@@ -57,9 +57,10 @@ def components(seed, b, c, device):
     return out + [torch.as_tensor(cvalid, device=device)]
 
 
-@pytest.mark.parametrize("c", [300, 1720])
-def test_pair_weight_kernel(cuda, c):
-    args = components(0, 4, c, cuda)
+@pytest.mark.parametrize("b", [1, 3, 4])
+@pytest.mark.parametrize("c", [1, 63, 64, 65, 300, 1720])  # tile edges
+def test_pair_weight_kernel(cuda, b, c):
+    args = components(0, b, c, cuda)
     hp = SolverHyperParams()
     n0 = kernels.PAIR_WEIGHT.launches
     W, counts = kernels.pair_weight_matrix(*args, hp)
@@ -70,6 +71,10 @@ def test_pair_weight_kernel(cuda, c):
     assert not torch.diagonal(W, dim1=-2, dim2=-1).any()
     for k in counts:
         assert int((counts[k] - counts0[k]).abs().max()) <= 2, k
+    W2, counts2 = kernels.pair_weight_matrix(*args, hp)  # deterministic
+    assert torch.equal(W, W2)
+    for k in counts:
+        assert torch.equal(counts[k], counts2[k]), k
 
 
 def test_power_iteration_checks_its_inputs(cuda):
@@ -83,18 +88,40 @@ def test_power_iteration_checks_its_inputs(cuda):
         kernels.power_iteration(W, h[:, :32].contiguous(), 3)
 
 
-@pytest.mark.parametrize("c", [1000, 1722])  # C % 4 == 0 and != 0
-def test_power_iteration_kernel(cuda, c):
-    args = components(1, 4, c, cuda)
+@pytest.mark.parametrize("h_kind", ["random", "zero"])
+@pytest.mark.parametrize("b", [1, 4, 17])  # 17: one pair past the path's 16
+@pytest.mark.parametrize("c", [5, 1000, 1722])  # C < cluster, C % 4 == 0, != 0
+def test_power_iteration_kernel(cuda, c, b, h_kind):
+    """With h = 0 every step has norm 0, so v is kept: all ones."""
+    args = components(1, b, c, cuda)
     W, _ = kernels.pair_weight_matrix_plain(*args, SolverHyperParams())
-    h = torch.as_tensor(50 * np.random.RandomState(9).rand(4, c),
+    h = torch.as_tensor(50 * np.random.RandomState(9).rand(b, c),
                         dtype=torch.float32, device=cuda)
+    if h_kind == "zero":
+        h = torch.zeros_like(h)
     n0 = kernels.POWER_ITER.launches
     u = kernels.power_iteration(W, h, 30)
     u0 = kernels.power_iteration_plain(W, h, 30)
     assert kernels.POWER_ITER.launches == n0 + 1
     cos = torch.nn.functional.cosine_similarity(u, u0, dim=-1)
     assert bool((cos >= 1 - 1e-4).all()), cos
+    assert torch.equal(u, kernels.power_iteration(W, h, 30))  # deterministic
+    if h_kind == "zero":
+        assert torch.equal(u, torch.ones_like(u))
+
+
+@pytest.mark.parametrize("b, c", [(0, 64), (2, 0)])
+def test_empty_inputs_launch_nothing(cuda, b, c):
+    """An empty batch or no correspondences: empty outputs, zero counts,
+    and no launch counted."""
+    args = components(0, b, c, cuda)
+    n0 = (kernels.PAIR_WEIGHT.launches, kernels.POWER_ITER.launches)
+    W, counts = kernels.pair_weight_matrix(*args, SolverHyperParams())
+    u = kernels.power_iteration(W, torch.ones(b, c, device=cuda), 30)
+    assert W.shape == (b, c, c) and u.shape == (b, c)
+    for k in counts:
+        assert counts[k].shape == (b,) and not counts[k].any(), k
+    assert (kernels.PAIR_WEIGHT.launches, kernels.POWER_ITER.launches) == n0
 
 
 def numpy_draws(seed, b, cfg, device):

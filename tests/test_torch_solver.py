@@ -53,15 +53,19 @@ def test_pair_weight_matrix_matches_xla_build(rng):
         assert int(c0[k]) == int(c1[k][0]), k
 
 
-def test_pair_weight_matrix_matches_pallas_kernel(rng):
+@pytest.mark.parametrize("c", [1, 2, 65, 129, 300])
+def test_pair_weight_matrix_matches_pallas_kernel(rng, c):
     """C=300 is not a multiple of any tile (the TPU's 256, the CUDA
-    kernel's 64); the Pallas kernel runs in interpret mode."""
-    comps = components(rng, 300)
+    kernel's 64); 1, 2, 65 and 129 are the CUDA kernel's tile edges (one
+    entry, one pair, one past a tile, one past two).  The Pallas kernel
+    runs in interpret mode."""
+    comps = components(rng, c)
     W0, c0 = pair_weight_matrix_vmem(*map(jnp.asarray, comps),
                                      jsol.SolverHyperParams(),
                                      interpret=True)
     W1, c1 = kernels.pair_weight_matrix(*[t(a)[None] for a in comps],
                                         tsol.SolverHyperParams())
+    assert W1.shape == (1, c, c)
     np.testing.assert_allclose(np.asarray(W0), W1[0].numpy(), atol=5e-5)
     for k in c0:
         assert abs(int(c0[k]) - int(c1[k][0])) <= 2, k
@@ -81,16 +85,24 @@ def test_pair_weight_matrix_batches(rng):
             assert int(counts[k][b]) == int(c1[k][0])
 
 
-def test_power_iteration_matches_jax(rng):
-    """The plain loop against `power_iteration_vmem`'s CPU branch."""
+@pytest.mark.parametrize("case", ["random", "h0", "W0"])
+def test_power_iteration_matches_jax(rng, case):
+    """The plain loop against `power_iteration_vmem`'s CPU branch.  With
+    h = 0 or W = 0 every step has norm 0, so both keep v = 1."""
     comps = components(rng, 200)
     W, _ = jsol.pair_weight_matrix(*map(jnp.asarray, comps),
                                    jsol.SolverHyperParams())
     h = (50.0 * rng.rand(200)).astype(np.float32)
+    if case == "h0":
+        h = np.zeros_like(h)
+    if case == "W0":
+        W = jnp.zeros_like(W)
     uj = np.asarray(power_iteration_vmem(W, jnp.asarray(h), 30))
     n0 = kernels.POWER_ITER.launches
     ut = kernels.power_iteration(t(W)[None], t(h)[None], 30)[0].numpy()
     np.testing.assert_allclose(uj, ut, atol=1e-6)
+    if case != "random":
+        np.testing.assert_array_equal(ut, np.ones(200, np.float32))
     assert kernels.POWER_ITER.launches == n0  # the CPU never launches
 
 
