@@ -26,8 +26,26 @@ Phases, each ending with one line that gives its own seconds:
      each kernel launched; pairs/s over 3 timed calls; the same with
      ground-truth (oracle) completion, whose median rotation error must
      stay under 5 degrees, as the JAX package's end-to-end test requires;
-     last, one call of the first run under torch.profiler (time per
-     stage, the device's idle share, the costliest kernels).
+  5c. the same on 16 synthetic ScanNet pairs (the kinect window, DoG on the
+     480x640 frames, a 21-class SCNet): pairs/s, launches, and an oracle
+     median rotation error at most 2 degrees above the JAX package's on
+     the same pairs (`tools/scannet_oracle_reference.py`, in PERF.md);
+  5d. the options on the suncg pairs with oracle completion and both
+     kernels: 3 refit and 3 trans-refine rounds and 5 ICP iterations per
+     step, at icp_dof 6 and 3: finite orthonormal poses, median rotation
+     error under 5 degrees, the median translation error beside 5b's;
+  5e. the evaluation CLI in this process (`cli.evaluate.main`, 16 pairs in
+     one batch, oracle completion): ours on suncg and scannet, ours_nr on
+     matterport; a 16-row result file, every summary value finite or
+     None, the suncg median rotation error under 5 degrees; the driver
+     prints each summary JSON on a line of its own;
+  5f. last, one call of 5b's and one of 5c's first run (K1) under
+     torch.profiler (time per stage, the device's idle share, the
+     costliest kernels).
+
+Every pipeline phase sets the launch counts to 0 just before it drives the
+pipeline and reads them just after; a kernel's `launches` in the JSON line
+is the sum over phases 5b-5e.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check raises and
@@ -44,6 +62,10 @@ import time
 
 BUDGET_S = 900.0          # hard limit for the whole run, build included
 B, C, ITERS = 16, 1720, 30
+# median oracle rotation error of the JAX package on phase 5c's 16 ScanNet
+# pairs (PERF.md section 6, PR 6: tools/scannet_oracle_reference.py on the
+# CPU); the port's may be at most 2 degrees above it
+JAX_SCANNET_ORACLE_MEDIAN_DEG = 2.5308895
 RAGGED_B, RAGGED_C = (1, 3), (1, 5, 63, 64, 65, 1722)   # tile/cluster edges
 # f32 operations per W entry in csrc/pair_weight.cu, counted from its
 # source (sqrt, division, exp and arccos one each): 12 for the two edge
@@ -351,10 +373,10 @@ def phase_power(W):
                 library_ms=library_ms)
 
 
-def make_pairs():
+def make_pairs(dataset):
     import numpy as np
     from relativepose_tpu_torch.data import synthetic
-    pairs = [synthetic.make_pair(i, "suncg", max_baseline=0.5)
+    pairs = [synthetic.make_pair(i, dataset, max_baseline=0.5)
              for i in range(B)]
 
     def stack(v):
@@ -364,33 +386,53 @@ def make_pairs():
     return stack(0), stack(1), np.stack([p[2] for p in pairs])
 
 
-def phase_pipeline(data, card):
-    import numpy as np
-    import torch
-    from relativepose_tpu_torch.core.rotation import angular_distance
+def read_counts():
+    from relativepose_tpu_torch.ops import kernels
+    return {k: v.launches for k, v in kernels.KERNELS.items()}
+
+
+def add_counts(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def pipeline_config(dataset, **kw):
+    """The flagship configuration (3 steps, C = 1720, 30 power
+    iterations) for one dataset."""
+    from relativepose_tpu_torch import config
     from relativepose_tpu_torch.match.keypoints import KeypointConfig
-    from relativepose_tpu_torch.match.solver import (
-        SolverHyperParams,
-        SolverStaticConfig,
-    )
+    from relativepose_tpu_torch.match.solver import SolverStaticConfig
+    from relativepose_tpu_torch.pipeline import recurrent
+    solver = dict(power_iters=30)
+    solver.update(kw.pop("solver", {}))
+    return recurrent.PipelineConfig(
+        dataset=dataset,
+        mask_method="kinect" if dataset == "scannet" else "second",
+        snumclass=config.NUM_CLASSES[dataset], alter_steps=3,
+        keypoints=KeypointConfig(), solver=SolverStaticConfig(**solver),
+        **kw)
+
+
+def drive_scnet(data, card, dataset, launches):
+    """The full-width bf16 SCNet pipeline (random weights from
+    torch.manual_seed(0)) on the B pairs, with K1 and then with K1+K2:
+    1 warm-up and 3 timed calls each; the counts of each run are added to
+    `launches`.  Returns (the K1 run's call, its seconds per call)."""
+    import torch
+    from relativepose_tpu_torch.match.solver import SolverHyperParams
     from relativepose_tpu_torch.models.scnet import SCNet
     from relativepose_tpu_torch.ops import kernels
     from relativepose_tpu_torch.pipeline import recurrent
-    from relativepose_tpu_torch.pipeline.oracle import (
-        make_oracle_completion_fn,
-    )
 
-    data_s, data_t, T_gt = data
+    data_s, data_t, _ = data
+    cfg0 = pipeline_config(dataset)
     torch.manual_seed(0)
-    net = SCNet(ngf=64, internal_size=(224, 224),
+    net = SCNet(ngf=64, snumclass=cfg0.snumclass, internal_size=(224, 224),
                 dtype=torch.bfloat16).cuda().eval()
     scnet_fn = recurrent.make_scnet_fn(net)
     hp = SolverHyperParams()
-    launches = {}
     for use_pallas in (False, True):
-        cfg = recurrent.PipelineConfig(
-            dataset="suncg", alter_steps=3, keypoints=KeypointConfig(),
-            solver=SolverStaticConfig(power_iters=30, use_pallas=use_pallas))
+        cfg = pipeline_config(dataset, solver=dict(use_pallas=use_pallas))
         gen = torch.Generator(device="cuda").manual_seed(7)
 
         def call(cfg=cfg, gen=gen):
@@ -406,41 +448,161 @@ def phase_pipeline(data, card):
             T = call()
         torch.cuda.synchronize()
         secs = (time.perf_counter() - t) / 3
-        counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+        counts = read_counts()
+        add_counts(launches, counts)
         check_poses(T)
         if counts["pair_weight_matrix"] == 0:
-            raise AssertionError("pipeline did not launch pair_weight_matrix")
+            raise AssertionError(f"{dataset} pipeline did not launch "
+                                 "pair_weight_matrix")
         if use_pallas and counts["power_iteration"] == 0:
-            raise AssertionError("pipeline did not launch power_iteration")
-        for k, n in counts.items():
-            if n:
-                launches.setdefault(k, n)
-        print(f"pipeline use_pallas={use_pallas}: {B / secs:.3f} pairs/s "
-              f"({secs * 1e3:.1f} ms per call of {B} pairs, 3 timed calls "
-              f"after 1 warm-up) launches {counts} on {card}", flush=True)
+            raise AssertionError(f"{dataset} pipeline did not launch "
+                                 "power_iteration")
+        print(f"{dataset} pipeline use_pallas={use_pallas}: "
+              f"{B / secs:.3f} pairs/s ({secs * 1e3:.1f} ms per call of {B} "
+              f"pairs, 3 timed calls after 1 warm-up) launches {counts} on "
+              f"{card}", flush=True)
         if not use_pallas:
             profiled = (call, secs)
+    return profiled
 
-        lay = cfg.layout
-        dev_s = recurrent.as_pair_batch(data_s, "cuda")
-        dev_t = recurrent.as_pair_batch(data_t, "cuda")
-        oracle = make_oracle_completion_fn(dev_s, dev_t, lay)
-        with torch.no_grad():
-            T_or = recurrent.estimate_pose_via_completion(
-                oracle, data_s, data_t, hp, cfg, generator=gen)
-        check_poses(T_or)
-        gt = torch.as_tensor(T_gt, dtype=torch.float32, device="cuda")
-        rot = angular_distance(T_or[:, :3, :3], gt[:, :3, :3]).cpu().numpy()
-        trans = torch.linalg.vector_norm(T_or[:, :3, 3] - gt[:, :3, 3],
-                                         dim=-1).cpu().numpy()
+
+def oracle_errors(data, cfg, launches=None):
+    """Oracle-completion poses of the B pairs under `cfg`, checked finite
+    and orthonormal -> (rotation errors deg, translation errors).  With
+    `launches`, the counts are set to 0 before and added after."""
+    import torch
+    from relativepose_tpu_torch.core.rotation import angular_distance
+    from relativepose_tpu_torch.match.solver import SolverHyperParams
+    from relativepose_tpu_torch.ops import kernels
+    from relativepose_tpu_torch.pipeline import recurrent
+    from relativepose_tpu_torch.pipeline.oracle import (
+        make_oracle_completion_fn,
+    )
+    data_s, data_t, T_gt = data
+    oracle = make_oracle_completion_fn(
+        recurrent.as_pair_batch(data_s, "cuda"),
+        recurrent.as_pair_batch(data_t, "cuda"), cfg.layout)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        T = recurrent.estimate_pose_via_completion(
+            oracle, data_s, data_t, SolverHyperParams(), cfg, generator=gen)
+    torch.cuda.synchronize()
+    if launches is not None:
+        add_counts(launches, read_counts())
+    check_poses(T)
+    gt = torch.as_tensor(T_gt, dtype=torch.float32, device="cuda")
+    rot = angular_distance(T[:, :3, :3], gt[:, :3, :3]).cpu().numpy()
+    trans = torch.linalg.vector_norm(T[:, :3, 3] - gt[:, :3, 3],
+                                     dim=-1).cpu().numpy()
+    return rot, trans
+
+
+def phase_pipeline(data, card, launches):
+    """5b: the suncg flagship; returns (the profiled call, seconds, the
+    K1 oracle's median translation error)."""
+    import numpy as np
+    profiled = drive_scnet(data, card, "suncg", launches)
+    for use_pallas in (False, True):
+        rot, trans = oracle_errors(
+            data, pipeline_config("suncg", solver=dict(use_pallas=use_pallas)),
+            launches)
         print(f"oracle completion use_pallas={use_pallas}: rotation error "
               f"median {np.median(rot):.3f} deg, translation median "
               f"{np.median(trans):.4f}", flush=True)
         if not np.median(rot) < 5.0:
             raise AssertionError(f"oracle rotation errors {rot}")
-    # last: the profiler can leave the host slower for later calls
-    profile_call(*profiled)
-    return launches
+        if not use_pallas:
+            trans_k1 = float(np.median(trans))
+    return profiled, trans_k1
+
+
+def phase_scannet(data, card, launches):
+    """5c: the ScanNet path, SCNet timed, then oracle completion against
+    the JAX package's median.  Returns the K1 call and its seconds."""
+    import numpy as np
+    profiled = drive_scnet(data, card, "scannet", launches)
+    counts = {}
+    rot, trans = oracle_errors(
+        data, pipeline_config("scannet", solver=dict(use_pallas=True)),
+        counts)
+    add_counts(launches, counts)
+    limit = JAX_SCANNET_ORACLE_MEDIAN_DEG + 2.0
+    print(f"scannet oracle completion (K1+K2, launches {counts}): rotation "
+          f"error median {np.median(rot):.3f} deg (limit {limit:.3f}: the "
+          f"JAX package's {JAX_SCANNET_ORACLE_MEDIAN_DEG:.3f} + 2), "
+          f"translation median {np.median(trans):.4f}; per pair "
+          f"{np.round(rot, 3).tolist()}", flush=True)
+    if not np.median(rot) <= limit:
+        raise AssertionError(f"scannet oracle rotation errors {rot}")
+    return profiled
+
+
+def phase_options(data, trans_5b, launches):
+    """5d: refit, trans-refine and ICP on the suncg oracle path."""
+    import numpy as np
+    for dof in (6, 3):
+        counts = {}
+        cfg = pipeline_config(
+            "suncg", icp_iters=5, icp_dof=dof,
+            solver=dict(use_pallas=True, refit_rounds=3,
+                        trans_refine_rounds=3))
+        rot, trans = oracle_errors(data, cfg, counts)
+        add_counts(launches, counts)
+        print(f"options refit=3 trans_refine=3 icp=5 icp_dof={dof} (oracle, "
+              f"K1+K2, launches {counts}): rotation error median "
+              f"{np.median(rot):.3f} deg, translation median "
+              f"{np.median(trans):.4f} (5b without options: {trans_5b:.4f})",
+              flush=True)
+        if counts["pair_weight_matrix"] == 0 or \
+                counts["power_iteration"] == 0:
+            raise AssertionError(f"options run launched {counts}")
+        if not np.median(rot) < 5.0:
+            raise AssertionError(f"options rotation errors {rot}")
+
+
+def phase_evaluate(launches):
+    """5e: the evaluation CLI in this process, in a temporary directory."""
+    import math
+    import shutil
+    import tempfile
+    import numpy as np
+    from relativepose_tpu_torch.cli import evaluate
+    from relativepose_tpu_torch.ops import kernels
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        for family, method in (("suncg", "ours"), ("scannet", "ours"),
+                               ("matterport", "ours_nr")):
+            exp = f"{family}_{method}"
+            print(f"evaluate {exp}: {B} pairs, oracle completion; the "
+                  "driver's statistics and summary follow", flush=True)
+            kernels.reset_launch_counts()
+            runner = evaluate.main([
+                "--dataList", "synthetic", "--synthetic_family", family,
+                "--method", method, "--maxIter", str(B), "--batch_pairs",
+                str(B), "--rm", "--exp", exp, "--device", "cuda"])
+            counts = read_counts()
+            add_counts(launches, counts)
+            rows = np.load(os.path.join("tmp", "rpe", exp,
+                                        f"{exp}.result.npy"),
+                           allow_pickle=True)
+            if len(rows) != B:
+                raise AssertionError(f"{exp}: {len(rows)} result rows")
+            summary = runner.summary()
+            bad = {k: v for k, v in summary.items()
+                   if v is not None and not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"{exp}: summary values {bad}")
+            med = float(np.median([float(r["err_ad"]) for r in rows]))
+            print(f"evaluate {exp}: median rotation error {med:.3f} deg, "
+                  f"launches {counts}", flush=True)
+            if family == "suncg" and not med < 5.0:
+                raise AssertionError(f"{exp}: median rotation error {med}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def profile_call(call, wall_s):
@@ -517,8 +679,18 @@ def main():
     W, k1 = ph.run("3 pair_weight_matrix", phase_pair_weight)
     k2 = ph.run("4 power_iteration", phase_power, W)
     del W
-    data = ph.run("5a synthetic pairs", make_pairs)
-    launches = ph.run("5b pipeline", phase_pipeline, data, card)
+    launches = {}
+    data = ph.run("5a synthetic pairs", make_pairs, "suncg")
+    profiled, trans_5b = ph.run("5b pipeline", phase_pipeline, data, card,
+                                launches)
+    scannet = ph.run("5c scannet pairs", make_pairs, "scannet")
+    profiled_sc = ph.run("5c scannet pipeline", phase_scannet, scannet, card,
+                         launches)
+    ph.run("5d options", phase_options, data, trans_5b, launches)
+    ph.run("5e evaluate", phase_evaluate, launches)
+    # last: the profiler can leave the host slower for later calls
+    ph.run("5f profile suncg", profile_call, *profiled)
+    ph.run("5f profile scannet", profile_call, *profiled_sc)
     for k in (k1, k2):
         k["launches"] = launches.get(k["name"], 0)
     order = ("name", "route", "source", "replaces", "launches",

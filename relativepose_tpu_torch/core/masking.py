@@ -1,9 +1,9 @@
-"""Observation masks for partial panoramas ('second' method).
+"""Observation masks for partial panoramas.
 
-Port of `relativepose_tpu/core/masking.py` for the suncg/matterport path:
-the 'second' method observes the second 160x160 face of the pano, and
-`geow` is the exp distance weight outside it.  NHWC layout.  The kinect
-(ScanNet) mask is a later slice of the port.
+Port of `relativepose_tpu/core/masking.py`: the 'second' method observes
+the second 160x160 face of the pano, and `geow` is the exp distance
+weight outside it; the 'kinect' method (ScanNet) observes the 66x88
+window centred in the second face.  NHWC layout.
 """
 
 from __future__ import annotations
@@ -33,25 +33,40 @@ def _second_mask_np(h: int = config.PANO_HEIGHT, w: int = config.PANO_WIDTH):
     return mask, geow
 
 
-def observation_mask(method: str, device="cuda"):
-    """The [H, W] observation mask and geow of a mask method."""
+@functools.lru_cache(maxsize=None)
+def _kinect_mask_np(h: int = config.PANO_HEIGHT, w: int = config.PANO_WIDTH):
+    mask = np.zeros((h, w), dtype=np.float32)
+    mask[config.KINECT_ROW0: config.KINECT_ROW1,
+         config.KINECT_COL0: config.KINECT_COL1] = 1.0
+    return mask
+
+
+def observation_mask(method: str, device="cuda", variant: str = "eval"):
+    """The [H, W] observation mask and geow of a mask method.
+
+    For 'kinect', variant 'eval' gives geow = 1 - mask and 'train' gives
+    20 inside the window and 1 outside; 'second' has one geow."""
     if method == "second":
         mask, geow = _second_mask_np()
-        return (torch.from_numpy(mask).to(device),
-                torch.from_numpy(geow).to(device))
-    if method == "kinect":
-        raise NotImplementedError(
-            "the kinect mask (ScanNet) is not ported yet")
-    raise ValueError(f"unknown maskMethod {method!r}")
+    elif method == "kinect":
+        mask = _kinect_mask_np()
+        if variant == "train":
+            geow = mask * 20.0 + (1.0 - mask)
+        else:
+            geow = 1.0 - mask
+    else:
+        raise ValueError(f"unknown maskMethod {method!r}")
+    return (torch.from_numpy(mask).to(device),
+            torch.from_numpy(geow).to(device))
 
 
-def apply_mask(x, method: str):
+def apply_mask(x, method: str, variant: str = "eval"):
     """Mask a pano tensor x [..., H, W, C].
 
     Returns (masked_x, mask [..., H, W, 1], geow [..., H, W, 1]) broadcast
     over the leading batch dimensions.
     """
-    mask, geow = observation_mask(method, x.device)
+    mask, geow = observation_mask(method, x.device, variant)
     mask = mask[..., None].to(x.dtype)
     geow = geow[..., None].to(x.dtype)
     bshape = x.shape[:-3]

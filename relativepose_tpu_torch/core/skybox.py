@@ -1,14 +1,15 @@
 """Skybox (4-face cubemap strip) camera model, batched.
 
-Port of `relativepose_tpu/core/skybox.py` for the suncg/matterport path
-(`face_rotations`, `pano_to_pointcloud`, `face_depth_to_pointcloud`,
+Port of `relativepose_tpu/core/skybox.py` (`face_rotations`,
+`pano_to_pointcloud`, `face_depth_to_pointcloud`, the kinect lifts,
 `splat_to_pano`, `lift_keypoints`).  Each view is a 160x640 panorama of
 four 160x160 pinhole faces with 90-degree FOV: face pixel (x, y) maps to
 NDC xs = (x/F - 0.5)*2, ys = (0.5 - y/F)*2 and depth z > 0 lifts to the
 camera point (xs*z, ys*z, -z).  Pano column block j looks through
 `FACE_ROTATIONS[FACE_ORDER[dataset][j]]`.  Every function works on
 leading batch dimensions and returns fixed shapes plus validity masks.
-The kinect (ScanNet) lifts are a later slice of the port.
+ScanNet shares matterport's face order; its lifts divide the NDC by the
+kinect intrinsics factors `KINECT_FX_DIV` / `KINECT_FY_DIV`.
 """
 
 from __future__ import annotations
@@ -36,16 +37,10 @@ def _face_ndc(h: int = FACE, w: int = FACE):
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
-def _ndc_flat(device):
-    xs, ys = _face_ndc()
+def _ndc_flat(device, h: int = FACE, w: int = FACE):
+    xs, ys = _face_ndc(h, w)
     return (torch.from_numpy(xs.reshape(-1)).to(device),
             torch.from_numpy(ys.reshape(-1)).to(device))
-
-
-def _no_kinect(ds):
-    if ds == "scannet":
-        raise NotImplementedError(
-            "the ScanNet kinect path is not ported yet")
 
 
 def pano_to_pointcloud(depth, dataset: str):
@@ -55,13 +50,17 @@ def pano_to_pointcloud(depth, dataset: str):
     valid [..., 4*FACE*FACE]), face-major and row-major within a face.
     """
     ds = config.canonical_dataset(dataset)
-    _no_kinect(ds)
     rots = face_rotations(ds, depth.dtype, depth.device)
     xs, ys = _ndc_flat(depth.device)
     pcs, valids = [], []
     for j, face in enumerate(torch.split(depth, FACE, dim=-1)):
         z = face.reshape(depth.shape[:-2] + (-1,))
-        cam = torch.stack([xs * z, ys * z, -z], dim=-1)
+        if ds == "scannet":
+            x = xs * z / config.KINECT_FX_DIV
+            y = ys * z / config.KINECT_FY_DIV
+        else:
+            x, y = xs * z, ys * z
+        cam = torch.stack([x, y, -z], dim=-1)
         pcs.append(cam @ rots[j].T)
         valids.append(z != 0)
     return torch.cat(pcs, dim=-2), torch.cat(valids, dim=-1)
@@ -87,6 +86,31 @@ def face_depth_to_pointcloud(depth, dataset: str, second_face=None):
     return pc, z != 0
 
 
+def kinect_crop_to_pointcloud(depth):
+    """Lift the 66x88 kinect crop.
+
+    depth: [..., 66, 88] -> (points [..., 66*88, 3], valid)."""
+    h, w = config.KINECT_FOV_H, config.KINECT_FOV_W
+    xs, ys = _ndc_flat(depth.device, h, w)
+    z = depth.reshape(depth.shape[:-2] + (-1,))
+    pc = torch.stack(
+        [xs * z * (w / 160.0), ys * z * (h / 160.0), -z], dim=-1)
+    return pc, z != 0
+
+
+def kinect_full_to_pointcloud(depth):
+    """Lift a full-size 480x640 kinect depth map.
+
+    depth: [..., 480, 640] -> (points [..., 480*640, 3], valid)."""
+    h, w = config.KINECT_FULL_H, config.KINECT_FULL_W
+    xs, ys = _ndc_flat(depth.device, h, w)
+    z = depth.reshape(depth.shape[:-2] + (-1,))
+    pc = torch.stack(
+        [xs * z / config.KINECT_FX_DIV, ys * z / config.KINECT_FY_DIV, -z],
+        dim=-1)
+    return pc, z != 0
+
+
 def _rot_component(R, i, comps):
     """Component i of R^T p for a signed-permutation numpy constant R.
 
@@ -103,21 +127,19 @@ def _rot_component(R, i, comps):
     return out if out is not None else torch.zeros_like(comps[0])
 
 
-def splat_to_pano(points, values, valid, dataset: str, num_channels: int):
-    """Forward-splat points onto the 4-face pano (nearest pixel).
+def project_to_faces(points, valid, dataset: str):
+    """Nearest pano pixel of each point, by the face that sees it.
 
-    points: [..., N, 3]; values: [..., N, C]; valid: [..., N] bool.
-    Returns (pano [..., FACE, 4*FACE, C], depth [..., FACE, 4*FACE]), where
-    depth is the splatted -z.  Of the points that land on one pixel the
-    highest point index wins: a scatter-max of the index into an int
-    buffer filled with -1, with a trash slot at M for points that land
-    nowhere — the same winners as the JAX package.
+    points: [..., N, 3]; valid: [..., N] bool.  Returns (v, u, ok, lz):
+    integer row and column [..., N] (the column includes the face block's
+    offset), whether some face sees the point, and its face-frame z.  Of
+    the faces that see a point the first in pano order wins; where ok is
+    False, v and u mean nothing.  The splat and the ICP association both
+    project through it, as both do in the JAX package.
     """
     ds = config.canonical_dataset(dataset)
     order = config.FACE_ORDER[ds]
     H = FACE
-    batch = points.shape[:-2]
-    n = points.shape[-2]
     comps = points.unbind(-1)
     any_ok = torch.zeros_like(valid)
     block = torch.zeros(valid.shape, dtype=torch.int64, device=valid.device)
@@ -142,7 +164,23 @@ def splat_to_pano(points, values, valid, dataset: str, num_channels: int):
     # torch.round, like jnp.round, rounds half to even
     u = torch.clamp(torch.round((xs + 1.0) * 0.5 * H), 0, H - 1).long()
     v = torch.clamp(torch.round((1.0 - ys) * 0.5 * H), 0, H - 1).long()
-    u = u + block * H
+    return v, u + block * H, any_ok, lzs
+
+
+def splat_to_pano(points, values, valid, dataset: str, num_channels: int):
+    """Forward-splat points onto the 4-face pano (nearest pixel).
+
+    points: [..., N, 3]; values: [..., N, C]; valid: [..., N] bool.
+    Returns (pano [..., FACE, 4*FACE, C], depth [..., FACE, 4*FACE]), where
+    depth is the splatted -z.  Of the points that land on one pixel the
+    highest point index wins: a scatter-max of the index into an int
+    buffer filled with -1, with a trash slot at M for points that land
+    nowhere — the same winners as the JAX package.
+    """
+    H = FACE
+    batch = points.shape[:-2]
+    n = points.shape[-2]
+    v, u, any_ok, lzs = project_to_faces(points, valid, dataset)
 
     M = H * 4 * H
     flat = torch.where(any_ok, v * (4 * H) + u, M).reshape(-1, n)

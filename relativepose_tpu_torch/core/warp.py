@@ -1,9 +1,10 @@
 """Cross-view warping of a partial pano under a pose estimate, batched.
 
-Port of `relativepose_tpu/core/warp.py::warp_view` for the suncg /
-matterport path: lift the observed second face of each view to 3D,
-transform it by the pose, rotate the normals, and forward-splat rgb,
-normal and depth onto the other view's 4-face pano.
+Port of `relativepose_tpu/core/warp.py::warp_view`: lift the observed
+region of each view to 3D (the second face for suncg / matterport, the
+66x88 kinect window for scannet), transform it by the pose, rotate the
+normals, and forward-splat rgb, normal and depth onto the other view's
+4-face pano.
 
 View layout (NHWC): [B, 160, 640, 8] with channels
 [rgb(3), normal(3), depth(1), valid_mask(1)].
@@ -26,10 +27,12 @@ def _observed_points_and_values(view, dataset: str):
     """
     ds = config.canonical_dataset(dataset)
     if ds == "scannet":
-        raise NotImplementedError(
-            "the ScanNet kinect path is not ported yet")
-    block = view[..., :, FACE: 2 * FACE, :]
-    pts, valid = skybox.face_depth_to_pointcloud(block[..., 6], ds)
+        block = view[..., config.KINECT_ROW0: config.KINECT_ROW1,
+                     config.KINECT_COL0: config.KINECT_COL1, :]
+        pts, valid = skybox.kinect_crop_to_pointcloud(block[..., 6])
+    else:
+        block = view[..., :, FACE: 2 * FACE, :]
+        pts, valid = skybox.face_depth_to_pointcloud(block[..., 6], ds)
     vals = block[..., 0:6].reshape(view.shape[:-3] + (-1, 6))
     return pts, vals, valid
 

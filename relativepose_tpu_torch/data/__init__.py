@@ -1,1 +1,1 @@
-"""Synthetic scenes (numpy only)."""
+"""Synthetic scenes and dataset adapters (numpy), sigma tables."""

@@ -1,13 +1,15 @@
 """Fixed-shape keypoint extraction, batched over views.
 
-Port of `relativepose_tpu/match/keypoints.py` for the 'second' mask:
+Port of `relativepose_tpu/match/keypoints.py`:
 
   * `detect_dog`: multi-scale difference-of-Gaussians corners with 3x3
-    NMS and top-K selection (edge-replicate padding);
+    NMS and top-K selection (edge-replicate padding), on the observed
+    face, or for ScanNet on the 480x640 frame remapped into the kinect
+    window;
   * `augment_with_feature_matches`: top-2-with-NMS locations of query
     descriptors in the other view's descriptor map;
   * `random_unobserved_points`: uniform pano points outside the observed
-    face;
+    region;
   * `build_keypoint_sets`: the per-view fixed-capacity keypoint sets with
     observation weights 1.0 / 0.99.
 
@@ -39,6 +41,9 @@ H, W = config.PANO_HEIGHT, config.PANO_WIDTH
 
 N_SIFT_MATCH = 30
 N_RANDOM = 30
+# the original's kinect count; like the JAX package, nothing uses it: the
+# kinect path draws `KeypointConfig.n_random` points too
+N_RANDOM_KINECT = 120
 MARKER = 0.99
 AUG_TOPK = 2
 
@@ -211,10 +216,13 @@ def augment_with_feature_matches(desc_query, query_valid, feat_other,
 
 def in_observed_region(pts, mask_method: str):
     """Observation test for keypoint weights. pts: [..., 2] (x, y)."""
-    x = pts[..., 0]
+    x, y = pts[..., 0], pts[..., 1]
     if mask_method == "second":
         return (x >= FACE) & (x <= 2 * FACE)
-    raise NotImplementedError(f"mask {mask_method!r} is not ported yet")
+    if mask_method == "kinect":
+        return ((x >= config.KINECT_COL0) & (x <= config.KINECT_COL1)
+                & (y >= config.KINECT_ROW0) & (y <= config.KINECT_ROW1))
+    raise ValueError(mask_method)
 
 
 def random_unobserved_points(n_random: int, mask_method: str, batch: int,
@@ -236,36 +244,51 @@ def _normalized(pts):
     return pts / torch.tensor([W, H], dtype=pts.dtype, device=pts.device)
 
 
-def detect_observed(rgb, cfg: KeypointConfig):
-    """Step-invariant DoG detection on the observed face.
+def detect_observed(rgb, cfg: KeypointConfig, gray_full=None):
+    """Step-invariant DoG detection on the observed region.
 
-    rgb: [B, H, W, 3] masked BGR 0..255.  Returns (pts [B, n_detect, 2]
-    pano coords, valid [B, n_detect])."""
+    rgb: [B, H, W, 3] masked BGR 0..255.  For ScanNet pass gray_full
+    [B, 480, 640]: detection runs on the full frame and is remapped into
+    the kinect window.  Returns (pts [B, n_detect, 2] pano coords, valid
+    [B, n_detect])."""
+    if gray_full is not None:
+        pts, valid = detect_dog(gray_full, cfg.n_detect, cfg.dog_threshold)
+        # divided by a tensor: CUDA turns a division by a Python number
+        # into a product with its rounded reciprocal, one ulp off
+        full = torch.tensor([config.KINECT_FULL_W, config.KINECT_FULL_H],
+                            dtype=pts.dtype, device=pts.device)
+        win = torch.tensor([config.KINECT_FOV_W, config.KINECT_FOV_H],
+                           dtype=pts.dtype, device=pts.device)
+        off = torch.tensor([config.KINECT_COL0, config.KINECT_ROW0],
+                           dtype=pts.dtype, device=pts.device)
+        return pts / full * win + off, valid
     obs = rgb_to_gray(rgb)[..., :, FACE: 2 * FACE]
     pts, valid = detect_dog(obs, cfg.n_detect, cfg.dog_threshold)
     return pts + torch.tensor([FACE, 0.0], device=pts.device), valid
 
 
 def build_keypoint_sets(rgb_s, rgb_t, feat_s, feat_t, cfg: KeypointConfig,
-                        mask_method: str = "second", det_s=None, det_t=None,
+                        mask_method: str = "second", gray_full_s=None,
+                        gray_full_t=None, det_s=None, det_t=None,
                         draws: Optional[KeypointDraws] = None,
                         generator=None):
     """Per-view keypoint sets for a batch of pairs.
 
     rgb_s/rgb_t: [B, H, W, 3] masked BGR 0..255; feat_s/feat_t:
-    [B, H, W, F] descriptor maps; det_s/det_t: optional `detect_observed`
-    results.  Returns (pts_s, valid_s, w_s, pts_t, valid_t, w_t) with
-    pts [B, capacity, 2] float pano coords and w 1.0 observed / 0.99
-    outside.
+    [B, H, W, F] descriptor maps; gray_full_s/t: [B, 480, 640] ScanNet
+    frames (see `detect_observed`); det_s/det_t: optional
+    `detect_observed` results.  Returns (pts_s, valid_s, w_s, pts_t,
+    valid_t, w_t) with pts [B, capacity, 2] float pano coords and w 1.0
+    observed / 0.99 outside.
     """
     if feat_s.shape[1:3] != feat_t.shape[1:3]:
         raise ValueError(f"view shapes differ: {feat_s.shape} {feat_t.shape}")
     draws = draws or KeypointDraws()
     b = feat_s.shape[0]
     if det_s is None:
-        det_s = detect_observed(rgb_s, cfg)
+        det_s = detect_observed(rgb_s, cfg, gray_full_s)
     if det_t is None:
-        det_t = detect_observed(rgb_t, cfg)
+        det_t = detect_observed(rgb_t, cfg, gray_full_t)
     det_s, det_s_valid = det_s
     det_t, det_t_valid = det_t
 

@@ -11,8 +11,11 @@ schedule of row sums, 4x4 Horn eigensolves and power iterations.
 
 The dynamic-shape early-outs (identity when fewer than 3 keypoints,
 correspondences or consistent pairs survive) are masked counts and a final
-select, per pair.  `refit_rounds` and `trans_refine_rounds` (extensions
-that default to 0) are not ported yet and raise NotImplementedError.
+select, per pair.  Two extensions run after the method's fit when their
+round counts (default 0) are set: `refit_rounds` of tight-sigma Gaussian
+inlier reweighting with a Horn re-solve, and `trans_refine_rounds` of a
+robust (Geman-McClure) mean of the translation votes pt - R ps under a
+fixed R.
 """
 
 from __future__ import annotations
@@ -234,6 +237,39 @@ def fit_irls_sm(ps, pt, ns, nt, W, mu, cfg: SolverStaticConfig):
     return R, t
 
 
+def _refit(ps, pt, ns, nt, cw0, R, t, mu, cfg: SolverStaticConfig):
+    """`refit_rounds` Gaussian-inlier Horn re-solves; a pair keeps its
+    pose where a solve is not finite."""
+    inv_2s2 = 1.0 / (2.0 * cfg.refit_sigma ** 2)
+    for _ in range(cfg.refit_rounds):
+        res2 = torch.sum((_rotate(ps, R) + t[:, None] - pt) ** 2, dim=-1)
+        # the 1e-4 floor keeps the solve conditioned when nothing lands
+        # within refit_sigma
+        w_ref = cw0 * (torch.exp(-res2 * inv_2s2) + 1e-4)
+        R2, t2 = horn.fit_rigid(ps, pt, ns, nt, w_ref, w_ref, mu)
+        good = torch.isfinite(R2).flatten(1).all(-1) & \
+            torch.isfinite(t2).all(-1)
+        R = torch.where(good[:, None, None], R2, R)
+        t = torch.where(good[:, None], t2, t)
+    return R, t
+
+
+def _trans_refine(ps, pt, cw0, R, t, cfg: SolverStaticConfig):
+    """`trans_refine_rounds` Geman-McClure IRLS rounds on the votes
+    pt - R ps, weights cw0 [B, C]; a pair keeps t where a round has no
+    support or is not finite."""
+    s2 = cfg.trans_refine_sigma ** 2
+    votes = pt - _rotate(ps, R)
+    for _ in range(cfg.trans_refine_rounds):
+        r2 = torch.sum((votes - t[:, None]) ** 2, dim=-1)
+        g = cw0 * (s2 / (s2 + r2))
+        den = torch.sum(g, dim=-1)
+        t2 = torch.sum(g[..., None] * votes, dim=1) / (den[:, None] + 1e-12)
+        good = (den > 1e-8) & torch.isfinite(t2).all(-1)
+        t = torch.where(good[:, None], t2, t)
+    return t
+
+
 # ---------------------------------------------------------------------------
 # Entry point
 # ---------------------------------------------------------------------------
@@ -250,9 +286,6 @@ def estimate_relative_pose(data_s, data_t, hp: SolverHyperParams,
     candidate correspondences under T (0 on an early-out).
     """
     cfg = cfg or SolverStaticConfig()
-    if cfg.refit_rounds > 0 or cfg.trans_refine_rounds > 0:
-        raise NotImplementedError(
-            "refit_rounds / trans_refine_rounds are not ported yet")
     feat_s = data_s["feat"] / FEAT_SCALING
     feat_t = data_t["feat"] / FEAT_SCALING
     valid_s, valid_t = data_s["valid"], data_t["valid"]
@@ -284,6 +317,13 @@ def estimate_relative_pose(data_s, data_t, hp: SolverHyperParams,
         R, t = fit_irls_sm(ps, pt, ns, nt, W, hp.mu, cfg)
     else:
         raise ValueError(f"unknown method {method!r}")
+
+    if cfg.refit_rounds > 0:
+        R, t = _refit(ps, pt, ns, nt, f * cvalid.to(f.dtype), R, t, hp.mu,
+                      cfg)
+    if cfg.trans_refine_rounds > 0:
+        t = _trans_refine(ps, pt, torch.sum(W, dim=-1) * cvalid.to(f.dtype),
+                          R, t, cfg)
 
     ok = (
         (valid_s.sum(-1) >= 3)

@@ -8,12 +8,14 @@ Port of `relativepose_tpu/pipeline/recurrent.py`.  Per recurrence step:
   3. composite: observed regions keep their normal/depth, completed regions
      take the network output; renormalize normals;
   4. extract keypoints, descriptors and 3D lifts;
-  5. solve for the next pose with this step's sigma values.
+  5. solve for the next pose with this step's sigma values, and with
+     `icp_iters` > 0 polish it by dense ICP (`ops/icp.py`).
 
 A Python loop over `alter_steps` takes the place of `lax.scan`; every
 tensor carries a leading pair dimension and no loop runs over pairs.  DoG
-detection runs once per view.  Not ported yet (NotImplementedError): the
-ScanNet kinect path, `icp_iters` > 0 and `remat`.
+detection runs once per view; for ScanNet on the 480x640 'rgb_full'
+frames.  `remat` (rematerialisation for gradients through the pipeline)
+comes with the training slice and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,12 +34,14 @@ from relativepose_tpu_torch.match.keypoints import (
     KeypointConfig,
     KeypointDraws,
     detect_observed,
+    rgb_to_gray,
 )
 from relativepose_tpu_torch.match.solver import (
     SolverHyperParams,
     SolverStaticConfig,
     estimate_relative_pose,
 )
+from relativepose_tpu_torch.ops import icp
 
 _EPS = 1e-12
 
@@ -45,7 +49,11 @@ _EPS = 1e-12
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """The same fields as the JAX package's PipelineConfig.  `unroll` has
-    no effect here: the recurrence is always a Python loop."""
+    no effect here: the recurrence is always a Python loop.  With
+    `icp_iters` > 0 each step's pose is ICP-polished (`icp_dof` 6 or 3)
+    unless it is exactly the identity (the solver's early-out); the step's
+    score stays the solver's score of the pose before the polish, as in
+    the JAX package."""
 
     dataset: str = "suncg"
     mask_method: str = "second"
@@ -133,15 +141,16 @@ def estimate_pose_via_completion(
 
     scnet_fn: [B, 2, H, W, 16] -> [B, 2, H, W, num_output] (`make_scnet_fn`
     or the oracle).  data_s/data_t: dicts of [B, ...] 'rgb' (BGR in
-    [0, 1]), 'norm', 'depth'.  hp_table: SolverHyperParams whose sigma
-    fields are floats or per-step sequences.  draws: per step, the
+    [0, 1]), 'norm', 'depth', and for ScanNet 'rgb_full' [B, 480, 640,
+    3].  hp_table: SolverHyperParams whose sigma fields are floats or
+    per-step sequences.  draws: per step, the
     keypoint draws (`KeypointDraws`) or None to draw from `generator`.
     Returns T [B, 4, 4]; with `return_step_poses` also [B, steps, 4, 4].
     """
-    if cfg.remat or cfg.icp_iters > 0:
-        raise NotImplementedError("remat and icp_iters are not ported yet")
-    if config.canonical_dataset(cfg.dataset) == "scannet":
-        raise NotImplementedError("the ScanNet kinect path is not ported yet")
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat matters only for gradients through the pipeline and "
+            "comes with the training slice (ROADMAP queue A6)")
     set_numerics()
     data_s = as_pair_batch(data_s, device)
     data_t = as_pair_batch(data_t, device)
@@ -157,13 +166,19 @@ def estimate_pose_via_completion(
     T = eye.repeat(b, 1, 1) if T_init is None else torch.as_tensor(
         T_init, dtype=torch.float32, device=view_s.device)
 
-    # DoG detection sees only the masked observed rgb, which the
-    # recurrence never changes: detect once, reuse in every step
+    gray_full_s = gray_full_t = None
+    if config.canonical_dataset(cfg.dataset) == "scannet":
+        gray_full_s = rgb_to_gray(data_s["rgb_full"] * 255.0)
+        gray_full_t = rgb_to_gray(data_t["rgb_full"] * 255.0)
+
+    # DoG detection sees only the masked observed rgb (or the ScanNet full
+    # frame), which the recurrence never changes: detect once, reuse in
+    # every step
     with record_function("rp.detect"):
         det_s = detect_observed(mask_s * data_s["rgb"] * 255.0,
-                                cfg.keypoints)
+                                cfg.keypoints, gray_full_s)
         det_t = detect_observed(mask_t * data_t["rgb"] * 255.0,
-                                cfg.keypoints)
+                                cfg.keypoints, gray_full_t)
 
     def composite(fv, mask, data):
         nrm = (1.0 - mask) * fv[..., 3:6] + mask * data["norm"]
@@ -209,6 +224,16 @@ def estimate_pose_via_completion(
         with record_function("rp.solver"):
             T, score = estimate_relative_pose(prim_s, prim_t, hp_step,
                                               cfg.solver, return_score=True)
+        if cfg.icp_iters > 0:
+            with record_function("rp.icp"):
+                # the identity is the solver's "no usable
+                # correspondences": it is not polished
+                is_id = torch.all((T - eye).abs().flatten(1) == 0, dim=-1)
+                T_p = icp.icp_polish(
+                    T, dep_sc, nrm_sc, dep_tc, nrm_tc, cfg.dataset,
+                    iters=cfg.icp_iters, dof=cfg.icp_dof,
+                    obs_s=mask_s[..., 0], obs_t=mask_t[..., 0])
+                T = torch.where(is_id[:, None, None], T, T_p)
         step_ts.append(T)
         scores.append(score)
 

@@ -8,23 +8,29 @@ The file imports no JAX, so that it also runs on a machine without it:
 Tolerances: W within 5e-5 with counts within 2 (the bound the JAX package
 holds its Pallas kernel to: the kernel's arccos and sum order differ from
 the plain version's); eigenvectors to a cosine of 1 - 1e-4; pipeline poses
-to 1e-3, the W difference carried through the solve.
+to 1e-3, the W difference carried through the solve; ICP poses to 1e-4
+and overlap statistics to 1e-5 (plain torch on both devices, sums in
+another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from relativepose_tpu_torch.core import overlap
 from relativepose_tpu_torch.data import synthetic
+from relativepose_tpu_torch.eval.harness import parse_eval_data
 from relativepose_tpu_torch.match.keypoints import (
     KeypointConfig,
     KeypointDraws,
+    detect_observed,
+    rgb_to_gray,
 )
 from relativepose_tpu_torch.match.solver import (
     SolverHyperParams,
     SolverStaticConfig,
 )
-from relativepose_tpu_torch.ops import kernels
+from relativepose_tpu_torch.ops import icp, kernels
 from relativepose_tpu_torch.pipeline import recurrent
 from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
 
@@ -138,17 +144,29 @@ def numpy_draws(seed, b, cfg, device):
     return out
 
 
+def stacked_pairs(seeds, dataset):
+    pairs = [synthetic.make_pair(s, dataset, max_baseline=0.5)
+             for s in seeds]
+    ds, dt = ({k: np.stack([p[v][k] for p in pairs]) for k in pairs[0][v]
+               if k != "pose"} for v in (0, 1))
+    return ds, dt, np.stack([p[2] for p in pairs]).astype(np.float32)
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_pipeline_on_card_matches_cpu(cuda, use_pallas):
     """The kernels' path on the card against the plain path on the CPU,
     with the same draws and oracle completion."""
-    pairs = [synthetic.make_pair(s, "suncg", max_baseline=0.5)
-             for s in (25, 26)]
-    ds, dt = ({k: np.stack([p[v][k] for p in pairs]) for k in pairs[0][v]
-               if k != "pose"} for v in (0, 1))
+    ds, dt, _ = stacked_pairs((25, 26), "suncg")
     cfg = recurrent.PipelineConfig(
         alter_steps=STEPS, keypoints=KeypointConfig(**SMALL),
         solver=SolverStaticConfig(power_iters=5, use_pallas=use_pallas))
+    assert_card_matches_cpu(ds, dt, cfg)
+
+
+def assert_card_matches_cpu(ds, dt, cfg):
+    """Every step's pose of the oracle pipeline on the card within 1e-3
+    of the CPU's, on the same draws; with use_pallas both kernels ran."""
+    n0 = {k: v.launches for k, v in kernels.KERNELS.items()}
     poses = {}
     for device in ("cpu", "cuda"):
         oracle = make_oracle_completion_fn(
@@ -160,3 +178,74 @@ def test_pipeline_on_card_matches_cpu(cuda, use_pallas):
             return_step_poses=True, device=device)[1].cpu()
     torch.testing.assert_close(poses["cuda"], poses["cpu"], rtol=0,
                                atol=1e-3)
+    assert kernels.PAIR_WEIGHT.launches == n0["pair_weight_matrix"] + STEPS
+    if cfg.solver.use_pallas:
+        assert kernels.POWER_ITER.launches > n0["power_iteration"]
+
+
+def test_kinect_detection_on_card_matches_cpu(cuda):
+    """DoG on the 480x640 frames, remapped into the kinect window: the same
+    keypoints on the card as on the CPU, bit for bit (the remap divides by
+    a tensor, since CUDA multiplies by the rounded reciprocal of a Python
+    divisor)."""
+    ds, _, _ = stacked_pairs((15, 16), "scannet")
+    out = {}
+    for device in ("cpu", "cuda"):
+        gray = rgb_to_gray(torch.as_tensor(ds["rgb_full"], device=device)
+                           * 255.0)
+        out[device] = [x.cpu() for x in detect_observed(
+            None, KeypointConfig(**SMALL), gray)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a, b)
+    assert int(out["cpu"][1].sum()) > 40
+
+
+@pytest.mark.parametrize("options", [
+    dict(),
+    dict(icp_iters=2, solver=SolverStaticConfig(
+        power_iters=5, use_pallas=True, refit_rounds=2,
+        trans_refine_rounds=2))])
+def test_scannet_pipeline_on_card_matches_cpu(cuda, options):
+    """The ScanNet kinect path (DoG on the 480x640 frames, the kinect
+    warp), and with the refit, trans-refine and ICP options, on the card
+    against the CPU."""
+    ds, dt, _ = stacked_pairs((15, 16), "scannet")
+    options = {"solver": SolverStaticConfig(power_iters=5, use_pallas=True),
+               **options}
+    cfg = recurrent.PipelineConfig(
+        dataset="scannet", mask_method="kinect", alter_steps=STEPS,
+        keypoints=KeypointConfig(**SMALL), **options)
+    assert_card_matches_cpu(ds, dt, cfg)
+
+
+@pytest.mark.parametrize("dof", [6, 3])
+def test_icp_polish_on_card_matches_cpu(cuda, dof):
+    ds, dt, T_gt = stacked_pairs((11, 13), "suncg")
+    T0 = T_gt.copy()
+    T0[:, :3, 3] += np.array([0.1, -0.05, 0.08], np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        args = [torch.as_tensor(a, device=device).float() for a in
+                (T0, ds["depth"], ds["norm"], dt["depth"], dt["norm"])]
+        obs = torch.zeros(args[1].shape, device=device)
+        obs[:, :, 160:320] = 1.0
+        out[device] = icp.icp_polish(*args, "suncg", iters=5, dof=dof,
+                                     obs_s=obs, obs_t=obs).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+    assert not torch.allclose(out["cpu"], torch.as_tensor(T0))
+
+
+@pytest.mark.parametrize("dataset", ["suncg", "scannet"])
+def test_overlap_on_card_matches_cpu(cuda, dataset):
+    ds, dt, T_gt = stacked_pairs((3, 4), dataset)
+    out = {}
+    for device in ("cpu", "cuda"):
+        clouds = [parse_eval_data(
+            torch.as_tensor(d["depth"], device=device),
+            torch.as_tensor(d["rgb"], device=device), None, dataset,
+            "ours")[:2] for d in (ds, dt)]
+        out[device] = overlap.point_cloud_overlap(
+            *clouds[0], *clouds[1], torch.as_tensor(T_gt, device=device))
+    for k in out["cpu"]:
+        torch.testing.assert_close(out["cuda"][k].cpu(), out["cpu"][k],
+                                   rtol=1e-5, atol=1e-5)

@@ -3,11 +3,11 @@
 The small configuration of `__graft_entry__.py` (n_detect=32, n_match=16,
 n_random=8, power_iters=5) with alter_steps=2, on synthetic suncg pairs,
 with ground-truth (oracle) completion and with a small SCNet (ngf=8, f32,
-Flax weights converted in memory).  The port gets the JAX package's random
-draws, so the keypoints agree and every step's pose must agree: to 1e-4
-with the oracle, and to 1e-3 with SCNet, whose f32 convolutions round
-differently (module tests: 5e-4 on its outputs) and feed the descriptor
-heatmaps."""
+Flax weights converted in memory).  The port gets the JAX package's
+random draws, so the keypoints agree and every step's pose must agree:
+to 1e-4 with the oracle, and to 1e-3 with SCNet, whose f32 convolutions
+round differently (module tests: 5e-4 on its outputs) and feed the
+descriptor heatmaps.  Solver scores are held to 1e-6."""
 
 import jax
 import jax.numpy as jnp
@@ -15,14 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from relativepose_tpu.match.keypoints import KeypointConfig as JKeypoints
-from relativepose_tpu.match.keypoints import detect_observed
+from relativepose_tpu.match import keypoints as jkp
+from relativepose_tpu.match import solver as jsol
 from relativepose_tpu.match.solver import SolverHyperParams as JHyper
-from relativepose_tpu.match.solver import SolverStaticConfig as JSolver
 from relativepose_tpu.models import SCNet as FlaxSCNet
 from relativepose_tpu.pipeline import recurrent as jrec
 from relativepose_tpu.pipeline.oracle import make_oracle_completion_fn as jor
-from relativepose_tpu_torch.data import synthetic
+from relativepose_tpu_torch.match import solver as tsol
 from relativepose_tpu_torch.match.keypoints import KeypointConfig
 from relativepose_tpu_torch.match.solver import (
     SolverHyperParams,
@@ -32,47 +31,15 @@ from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.models.scnet import SCNet
 from relativepose_tpu_torch.pipeline import recurrent as trec
 from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
-from torch_parity import flax_scnet_params, jax_pipeline_draws, stack_pairs
-
-SMALL = dict(n_detect=32, n_match=16, n_random=8)
-STEPS = 2
-
-
-def configs(unroll=False, **kw):
-    jcfg = jrec.PipelineConfig(alter_steps=STEPS,
-                               keypoints=JKeypoints(**SMALL),
-                               solver=JSolver(power_iters=5), unroll=unroll,
-                               **kw)
-    tcfg = trec.PipelineConfig(alter_steps=STEPS,
-                               keypoints=KeypointConfig(**SMALL),
-                               solver=SolverStaticConfig(power_iters=5), **kw)
-    return jcfg, tcfg
-
-
-def pairs(seeds):
-    ps = [synthetic.make_pair(s, "suncg", max_baseline=0.5) for s in seeds]
-    return (stack_pairs([p[0] for p in ps]), stack_pairs([p[1] for p in ps]),
-            np.stack([p[2] for p in ps]))
-
-
-def run_jax(ds, dt, keys, jcfg, scnet_fn_of):
-    """Per-pair JAX runs -> (final poses, step poses, detection masks)."""
-    finals, steps, det_s, det_t = [], [], [], []
-    for b in range(keys.shape[0]):
-        dj = {k: jnp.asarray(v[b]) for k, v in ds.items()}
-        dtj = {k: jnp.asarray(v[b]) for k, v in dt.items()}
-        T, st = jrec.estimate_pose_via_completion(
-            scnet_fn_of(dj, dtj), dj, dtj, keys[b], JHyper(), jcfg,
-            return_step_poses=True)
-        finals.append(np.asarray(T))
-        steps.append(np.asarray(st))
-        for d, out in ((dj, det_s), (dtj, det_t)):
-            _, mask = jrec.make_view(d["rgb"], d["norm"], d["depth"],
-                                     "second")
-            out.append(np.asarray(detect_observed(
-                mask * d["rgb"] * 255.0, jcfg.keypoints)[1]))
-    return (np.stack(finals), np.stack(steps), np.stack(det_s),
-            np.stack(det_t))
+from torch_parity import (
+    SMALL,
+    STEPS,
+    configs,
+    flax_scnet_params,
+    jax_pipeline_draws,
+    pairs,
+    run_jax,
+)
 
 
 def test_oracle_pipeline_matches_jax():
@@ -145,11 +112,89 @@ def test_best_score_step_select_and_sigma_table():
     np.testing.assert_array_equal(out[1.01].numpy()[0], np.eye(4))
 
 
-@pytest.mark.parametrize("kw", [dict(icp_iters=2), dict(remat=True),
-                                dict(dataset="scannet")])
+def test_best_score_matches_jax():
+    """step_select='best_score' with a per-step sigma table on the JAX
+    package's draws.  The JAX pipeline runs unrolled and returns each
+    step's primitives; its solver on them gives each step's pose and
+    score.  The port's step poses and selected pose agree to 1e-4, its
+    solver scores those primitives alike (1e-6), and min_score set between
+    the two pairs' best scores gates the lower pair to the identity in both
+    packages and leaves the other's pose as it was."""
+    ds, dt, _ = pairs([27, 28])
+    sig = dict(sigma_dist=[0.04, 0.05], sigma_feat=[0.01, 0.012])
+    hp_j = JHyper(**{k: jnp.asarray(v, jnp.float32) for k, v in sig.items()})
+    hp_t = SolverHyperParams(**sig)
+    jcfg, tcfg = configs(unroll=True, step_select="best_score")
+    keys = jax.random.split(jax.random.PRNGKey(9), 2)
+    solve_j = jax.jit(lambda ps, pt, hp: jsol.estimate_relative_pose(
+        ps, pt, hp, jcfg.solver, return_score=True))
+    sel_j, steps_j, scores = [], [], []
+    for b in range(2):
+        dj = {k: jnp.asarray(v[b]) for k, v in ds.items()}
+        dtj = {k: jnp.asarray(v[b]) for k, v in dt.items()}
+        T, prims = jrec.estimate_pose_via_completion(
+            jor(dj, dtj, jcfg.layout), dj, dtj, keys[b], hp_j, jcfg,
+            return_primitives=True)
+        sel_j.append(np.asarray(T))
+        for step, (ps, pt) in enumerate(prims):
+            T_s, sj = solve_j(ps, pt, JHyper(**{k: getattr(hp_j, k)[step]
+                                                for k in sig}))
+            _, st = tsol.estimate_relative_pose(
+                *[{k: torch.from_numpy(np.array(v))[None]
+                   for k, v in p.items()} for p in (ps, pt)],
+                SolverHyperParams(**{k: float(v[step])
+                                     for k, v in sig.items()}),
+                tcfg.solver, return_score=True)
+            assert abs(float(sj) - float(st[0])) < 1e-6
+            steps_j.append(np.asarray(T_s))
+            scores.append(float(sj))
+    steps_j = np.stack(steps_j).reshape(2, -1, 4, 4)
+    scores = np.asarray(scores).reshape(2, -1)
+    det = [[], []]
+    for b in range(2):
+        for i, d in enumerate((ds, dt)):
+            dj = {k: jnp.asarray(v[b]) for k, v in d.items()}
+            _, mask = jrec.make_view(dj["rgb"], dj["norm"], dj["depth"],
+                                     "second")
+            det[i].append(np.asarray(jkp.detect_observed(
+                mask * dj["rgb"] * 255.0, jcfg.keypoints)[1]))
+    draws = jax_pipeline_draws(keys, jcfg.alter_steps, np.stack(det[0]),
+                               np.stack(det[1]), jcfg.keypoints)
+    dev_s, dev_t = trec.as_pair_batch(ds, "cpu"), trec.as_pair_batch(dt, "cpu")
+
+    def run_port(cfg):
+        return trec.estimate_pose_via_completion(
+            make_oracle_completion_fn(dev_s, dev_t, cfg.layout), ds, dt,
+            hp_t, cfg, draws=draws, return_step_poses=True, device="cpu")
+
+    T, steps_t = run_port(tcfg)
+    np.testing.assert_allclose(steps_j, steps_t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(np.stack(sel_j), T.numpy(), atol=1e-4)
+    best = scores.argmax(1)
+    np.testing.assert_array_equal(T.numpy(), steps_t.numpy()[[0, 1], best])
+
+    gate = float(np.mean(scores.max(1)))
+    low = int(scores.max(1).argmin())
+    jg, tg = configs(unroll=True, step_select="best_score", min_score=gate)
+    dj = {k: jnp.asarray(v[low]) for k, v in ds.items()}
+    dtj = {k: jnp.asarray(v[low]) for k, v in dt.items()}
+    Tj_low = jrec.estimate_pose_via_completion(
+        jor(dj, dtj, jg.layout), dj, dtj, keys[low], hp_j, jg)
+    np.testing.assert_array_equal(np.asarray(Tj_low), np.eye(4))
+    Tg = run_port(tg)[0].numpy()
+    np.testing.assert_array_equal(Tg[low], np.eye(4))
+    np.testing.assert_array_equal(Tg[1 - low], T.numpy()[1 - low])
+
+
+@pytest.mark.parametrize("kw", [dict(remat=True),
+                                dict(remat=True, dataset="scannet",
+                                     mask_method="kinect"),
+                                dict(remat=True, icp_iters=2)])
 def test_options_not_ported_raise(kw):
+    """remat (gradients through the pipeline) comes with the training
+    slice; whatever the other options, it raises."""
     ds, dt, _ = pairs([24])
     _, tcfg = configs(**kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="training slice"):
         trec.estimate_pose_via_completion(
             lambda x: x, ds, dt, SolverHyperParams(), tcfg, device="cpu")

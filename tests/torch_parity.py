@@ -8,7 +8,21 @@ import numpy as np
 import torch
 
 from relativepose_tpu.match import keypoints as jkp
+from relativepose_tpu.match.keypoints import KeypointConfig as JKeypoints
+from relativepose_tpu.match.keypoints import detect_observed, rgb_to_gray
+from relativepose_tpu.match.solver import SolverHyperParams as JHyper
+from relativepose_tpu.match.solver import SolverStaticConfig as JSolver
+from relativepose_tpu.pipeline import recurrent as jrec
+from relativepose_tpu.pipeline.oracle import make_oracle_completion_fn as jor
+from relativepose_tpu_torch.data import synthetic
+from relativepose_tpu_torch.match.keypoints import KeypointConfig
 from relativepose_tpu_torch.match.keypoints import KeypointDraws
+from relativepose_tpu_torch.match.solver import (
+    SolverHyperParams,
+    SolverStaticConfig,
+)
+from relativepose_tpu_torch.pipeline import recurrent as trec
+from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
 
 
 def stack_pairs(dicts):
@@ -77,3 +91,66 @@ def flax_scnet_params(net, seed=0):
         return (0.02 * rng.randn(*s.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+# The pipelines of both packages at the small configuration of
+# `__graft_entry__.py`, with alter_steps=2.
+SMALL = dict(n_detect=32, n_match=16, n_random=8)
+STEPS = 2
+
+
+def configs(unroll=False, **kw):
+    """The small pipeline configuration in both packages."""
+    jcfg = jrec.PipelineConfig(alter_steps=STEPS,
+                               keypoints=JKeypoints(**SMALL),
+                               solver=JSolver(power_iters=5), unroll=unroll,
+                               **kw)
+    tcfg = trec.PipelineConfig(alter_steps=STEPS,
+                               keypoints=KeypointConfig(**SMALL),
+                               solver=SolverStaticConfig(power_iters=5), **kw)
+    return jcfg, tcfg
+
+
+def pairs(seeds, dataset="suncg"):
+    """Synthetic pairs -> (data_s, data_t, T_gt) of stacked numpy arrays."""
+    ps = [synthetic.make_pair(s, dataset, max_baseline=0.5) for s in seeds]
+    return (stack_pairs([p[0] for p in ps]), stack_pairs([p[1] for p in ps]),
+            np.stack([p[2] for p in ps]))
+
+
+def run_jax(ds, dt, keys, jcfg, scnet_fn_of, hp=None):
+    """Per-pair JAX runs -> (final poses, step poses, detection masks)."""
+    finals, steps, det_s, det_t = [], [], [], []
+    for b in range(keys.shape[0]):
+        dj = {k: jnp.asarray(v[b]) for k, v in ds.items()}
+        dtj = {k: jnp.asarray(v[b]) for k, v in dt.items()}
+        T, st = jrec.estimate_pose_via_completion(
+            scnet_fn_of(dj, dtj), dj, dtj, keys[b], hp or JHyper(), jcfg,
+            return_step_poses=True)
+        finals.append(np.asarray(T))
+        steps.append(np.asarray(st))
+        for d, out in ((dj, det_s), (dtj, det_t)):
+            _, mask = jrec.make_view(d["rgb"], d["norm"], d["depth"],
+                                     jcfg.mask_method)
+            gray = None if "rgb_full" not in d else \
+                rgb_to_gray(d["rgb_full"] * 255.0)
+            out.append(np.asarray(detect_observed(
+                mask * d["rgb"] * 255.0, jcfg.keypoints, gray)[1]))
+    return (np.stack(finals), np.stack(steps), np.stack(det_s),
+            np.stack(det_t))
+
+
+def run_oracle_both(ds, dt, key_seed, jcfg, tcfg, hp_j=None, hp_t=None):
+    """The oracle pipeline in both packages on the same draws ->
+    (JAX step poses, port final poses, port step poses, draws)."""
+    keys = jax.random.split(jax.random.PRNGKey(key_seed), len(ds["rgb"]))
+    _, steps_j, det_s, det_t = run_jax(
+        ds, dt, keys, jcfg, lambda a, b: jor(a, b, jcfg.layout), hp_j)
+    draws = jax_pipeline_draws(keys, jcfg.alter_steps, det_s, det_t,
+                               jcfg.keypoints, jcfg.mask_method)
+    dev_s, dev_t = trec.as_pair_batch(ds, "cpu"), trec.as_pair_batch(dt, "cpu")
+    T, steps_t = trec.estimate_pose_via_completion(
+        make_oracle_completion_fn(dev_s, dev_t, tcfg.layout), ds, dt,
+        hp_t or SolverHyperParams(), tcfg, draws=draws,
+        return_step_poses=True, device="cpu")
+    return steps_j, T, steps_t, draws
