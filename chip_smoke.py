@@ -39,13 +39,27 @@ Phases, each ending with one line that gives its own seconds:
      matterport; a 16-row result file, every summary value finite or
      None, the suncg median rotation error under 5 degrees; the driver
      prints each summary JSON on a line of its own;
-  5f. last, one call of 5b's and one of 5c's first run (K1) under
-     torch.profiler (time per stage, the device's idle share, the
-     costliest kernels).
+  6a. the two training steps at full width (batch 8 pairs, bf16 compute
+     with f32 parameters, Resnet18_8s at width 64, SCNet at ngf 64 with
+     internal 224x224 and its frozen netF teacher) on 16 synthetic suncg
+     pairs resident on the card: ms per step by CUDA events (5 steps
+     after one warm-up), pairs/s, peak device memory, and the split
+     between the augmentation (`gather_batch`) and forward + backward +
+     Adam, each timed alone; every loss and gradient norm finite, and 20
+     steps on one fixed batch must leave the loss below its first value;
+  6b. both training CLIs in this process at their defaults (full width,
+     batch 8, bf16): `cli.train_feature` on the synthetic debug set for
+     10 s, then `cli.train_completion --featurelearning 1 --feat_ckpt`
+     the npz checkpoint the feature run just saved; each must write its
+     npz checkpoint and log only finite losses;
+  5f. last, one call of 5b's and one of 5c's first run (K1) and one
+     completion step of 6a under torch.profiler (time per stage, the
+     device's idle share, the costliest kernels).
 
 Every pipeline phase sets the launch counts to 0 just before it drives the
 pipeline and reads them just after; a kernel's `launches` in the JSON line
-is the sum over phases 5b-5e.
+is the sum over phases 5b-5e.  The training phases 6a and 6b reach neither
+kernel; their counts are printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Any failed check raises and
@@ -55,6 +69,7 @@ the script exits non-zero.  Without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -605,6 +620,179 @@ def phase_evaluate(launches):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+TRAIN_B = 8   # pairs per training step, the CLIs' default
+
+
+def check_finite(name, metrics):
+    bad = {k: float(v) for k, v in metrics.items()
+           if not math.isfinite(float(v))}
+    if bad:
+        raise AssertionError(f"{name}: non-finite {bad}")
+
+
+def drive_trainer(name, step, gather, card):
+    """Times one trainer's step (a full step with its augmentation, then
+    each part alone), checks its metrics and that 20 steps on one fixed
+    batch lower the loss.  step(batch, draws=None) -> metrics; with draws
+    None it draws them itself and returns them with the metrics."""
+    import torch
+    from relativepose_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # the state and earlier phases'
+    seen = []
+
+    def full():
+        seen.append(step(gather())[0])
+
+    ms = cuda_ms(full, 5)
+    ms_aug = cuda_ms(gather, 5)
+    batch = gather()
+    ms_train = cuda_ms(lambda: seen.append(step(batch)[0]), 5)
+    peak = torch.cuda.max_memory_allocated()
+    for m in seen:
+        check_finite(name, m)
+    metrics, draws = step(batch)
+    losses = [float(metrics["loss"])]
+    for _ in range(19):
+        m, _ = step(batch, draws)
+        check_finite(name, m)
+        losses.append(float(m["loss"]))
+    counts = read_counts()
+    print(f"{name} step: {ms:.3f} ms per step of {TRAIN_B} pairs "
+          f"({TRAIN_B / ms * 1e3:.3f} pairs/s; 5 steps after 1 warm-up, "
+          f"CUDA events); augmentation (gather_batch) alone {ms_aug:.3f} "
+          f"ms, forward+backward+Adam alone {ms_train:.3f} ms; peak device "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated), "
+          f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+          f"GiB allocated before the first step; grad "
+          f"norm {float(seen[-1]['grad_norm']):.4g}; kernel launches "
+          f"{counts}; on {card}", flush=True)
+    print(f"{name} step: loss over 20 steps on one fixed batch "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}", flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    return ms
+
+
+def phase_train_steps(card):
+    """6a: the feature step, then the completion step against the feature
+    net it trained, at full width on 16 resident synthetic suncg pairs.
+    Returns the completion step's call and its seconds, for 5f."""
+    import torch
+    from relativepose_tpu_torch.data import datasets as dsets
+    from relativepose_tpu_torch.data import device_store as dstore
+    from relativepose_tpu_torch.train import completion, feature
+    store = dstore.DeviceStore(
+        dsets.SyntheticPairs("suncg", n=2 * TRAIN_B, seed=0,
+                             full_frames=False),
+        device="cuda", with_full_frames=False)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pick = torch.Generator().manual_seed(4)
+
+    def gather():
+        idx = torch.randperm(store.n, generator=pick)[:TRAIN_B].cuda()
+        return dstore.gather_batch(store.arrays, idx, "suncg",
+                                   generator=gen)
+
+    fcfg = feature.FeatureTrainConfig(dtype=torch.bfloat16)
+    fstate = feature.init_state(fcfg, "cuda", seed=0)
+
+    def fstep(batch, draws=None):
+        if draws is None:
+            draws = feature.draw_negatives(fcfg, batch, gen)
+        return feature.train_step(fstate, batch, draws, fcfg), draws
+
+    drive_trainer("feature", fstep, gather, card)
+    net_f = fstate.models["net_f"]
+    del fstate
+    ccfg = completion.CompletionTrainConfig(dtype=torch.bfloat16)
+    cstate = completion.init_state(ccfg, "cuda", seed=0, net_f=net_f)
+
+    def cstep(batch, draws=None):
+        if draws is None:
+            draws = completion.draw(ccfg, batch, gen)
+        return completion.train_step(cstate, batch, draws, ccfg), draws
+
+    ms = drive_trainer("completion", cstep, gather, card)
+    return (lambda: cstep(gather())), ms / 1e3
+
+
+def check_cli_run(name, ckpt, root_key):
+    """A training CLI's run: its npz checkpoint holds `root_key`, and every
+    scalar it logged is finite, with train and val losses among them."""
+    import numpy as np
+    from relativepose_tpu_torch.utils.checkpoint import load_params_npz
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"{name}: no checkpoint {ckpt}")
+    tree = load_params_npz(ckpt)
+    if root_key not in tree:
+        raise AssertionError(f"{name}: {ckpt} lacks {root_key}")
+    n_params = sum(int(np.prod(a.shape)) for a in _leaves(tree))
+    path = os.path.join(os.path.dirname(os.path.dirname(ckpt)),
+                        "tensorboard", "scalars.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    keys = {k for r in rows for k in r["values"]}
+    for r in rows:
+        check_finite(name, r["values"])
+    if not {"train_loss", "val_loss"} <= keys:
+        raise AssertionError(f"{name}: logged {sorted(keys)}")
+    last = {k: v for r in rows for k, v in r["values"].items()
+            if k.endswith("loss")}
+    print(f"{name}: checkpoint {os.path.basename(ckpt)} with {n_params} "
+          f"parameters; {len(rows)} logged rows, last losses {last}",
+          flush=True)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def phase_train_clis(card):
+    """6b: the feature CLI, then the completion CLI against the netF it
+    saved, in a temporary directory, at the CLIs' defaults."""
+    import shutil
+    import tempfile
+    from relativepose_tpu_torch.cli import train_completion, train_feature
+    from relativepose_tpu_torch.ops import kernels
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cwd = os.getcwd()
+    cache = os.environ.get("RPTPU_SYNTH_CACHE")
+    # the completion run reads the pairs the feature run rendered
+    os.environ["RPTPU_SYNTH_CACHE"] = os.path.join(tmp, "pairs")
+    common = ["--dataList", "synthetic", "--debug", "--max_epoch", "1",
+              "--train_duration", "10", "--batch_size", str(TRAIN_B), "--rm",
+              "--device", "cuda"]
+    try:
+        os.chdir(tmp)
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        feat_ckpt = train_feature.main(["--exp", "feat"] + common)
+        print(f"train_feature: {time.perf_counter() - t:.1f} s on {card}",
+              flush=True)
+        check_cli_run("train_feature", feat_ckpt, "net_f")
+        t = time.perf_counter()
+        comp_ckpt = train_completion.main(
+            ["--exp", "comp", "--featurelearning", "1", "--feat_ckpt",
+             feat_ckpt] + common)
+        print(f"train_completion: {time.perf_counter() - t:.1f} s on "
+              f"{card}; kernel launches {read_counts()}", flush=True)
+        check_cli_run("train_completion", comp_ckpt, "ConvBlock_0")
+    finally:
+        os.chdir(cwd)
+        if cache is None:
+            os.environ.pop("RPTPU_SYNTH_CACHE", None)
+        else:
+            os.environ["RPTPU_SYNTH_CACHE"] = cache
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def profile_call(call, wall_s):
     """One pipeline call under torch.profiler: host time of each stage
     range (rp.*) and the device time of the kernels launched inside it,
@@ -688,9 +876,12 @@ def main():
                          launches)
     ph.run("5d options", phase_options, data, trans_5b, launches)
     ph.run("5e evaluate", phase_evaluate, launches)
+    profiled_tr = ph.run("6a training steps", phase_train_steps, card)
+    ph.run("6b training CLIs", phase_train_clis, card)
     # last: the profiler can leave the host slower for later calls
     ph.run("5f profile suncg", profile_call, *profiled)
     ph.run("5f profile scannet", profile_call, *profiled_sc)
+    ph.run("5f profile completion step", profile_call, *profiled_tr)
     for k in (k1, k2):
         k["launches"] = launches.get(k["name"], 0)
     order = ("name", "route", "source", "replaces", "launches",

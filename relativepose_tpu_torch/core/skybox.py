@@ -2,7 +2,7 @@
 
 Port of `relativepose_tpu/core/skybox.py` (`face_rotations`,
 `pano_to_pointcloud`, `face_depth_to_pointcloud`, the kinect lifts,
-`splat_to_pano`, `lift_keypoints`).  Each view is a 160x640 panorama of
+`pano_idx`, `splat_to_pano`, `lift_keypoints`).  Each view is a 160x640 panorama of
 four 160x160 pinhole faces with 90-degree FOV: face pixel (x, y) maps to
 NDC xs = (x/F - 0.5)*2, ys = (0.5 - y/F)*2 and depth z > 0 lifts to the
 camera point (xs*z, ys*z, -z).  Pano column block j looks through
@@ -10,6 +10,14 @@ camera point (xs*z, ys*z, -z).  Pano column block j looks through
 leading batch dimensions and returns fixed shapes plus validity masks.
 ScanNet shares matterport's face order; its lifts divide the NDC by the
 kinect intrinsics factors `KINECT_FX_DIV` / `KINECT_FY_DIV`.
+
+No division here is by a Python number: CUDA computes one as a product
+with the number's rounded f32 reciprocal and the CPU as a true quotient,
+which differ by one ulp for some inputs.  Divisors are tensors
+(`_divisor`), except that `pano_to_pointcloud`'s scannet lift multiplies
+by the f32 reciprocals of the kinect factors on every device: that is
+what the JAX package's compiled (jit) programs compute for a division by
+a constant, and the training data pipeline matches them bit for bit.
 """
 
 from __future__ import annotations
@@ -37,6 +45,18 @@ def _face_ndc(h: int = FACE, w: int = FACE):
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
+def _divisor(value: float, like):
+    """`value` as a 0-d tensor of like's dtype and device, so that x / it is
+    a true division on every device."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _reciprocal(value: float) -> float:
+    """The f32 reciprocal of `value` (a product with an f32 value is exact
+    on every device)."""
+    return float(np.float32(1.0) / np.float32(value))
+
+
 def _ndc_flat(device, h: int = FACE, w: int = FACE):
     xs, ys = _face_ndc(h, w)
     return (torch.from_numpy(xs.reshape(-1)).to(device),
@@ -56,8 +76,8 @@ def pano_to_pointcloud(depth, dataset: str):
     for j, face in enumerate(torch.split(depth, FACE, dim=-1)):
         z = face.reshape(depth.shape[:-2] + (-1,))
         if ds == "scannet":
-            x = xs * z / config.KINECT_FX_DIV
-            y = ys * z / config.KINECT_FY_DIV
+            x = xs * z * _reciprocal(config.KINECT_FX_DIV)
+            y = ys * z * _reciprocal(config.KINECT_FY_DIV)
         else:
             x, y = xs * z, ys * z
         cam = torch.stack([x, y, -z], dim=-1)
@@ -106,9 +126,18 @@ def kinect_full_to_pointcloud(depth):
     xs, ys = _ndc_flat(depth.device, h, w)
     z = depth.reshape(depth.shape[:-2] + (-1,))
     pc = torch.stack(
-        [xs * z / config.KINECT_FX_DIV, ys * z / config.KINECT_FY_DIV, -z],
-        dim=-1)
+        [xs * z / _divisor(config.KINECT_FX_DIV, z),
+         ys * z / _divisor(config.KINECT_FY_DIV, z), -z], dim=-1)
     return pc, z != 0
+
+
+def pano_idx(flat_index, h: int = FACE, w: int = 4 * FACE):
+    """Flat point-cloud index [...] (the order of `pano_to_pointcloud`) ->
+    (x, y) pano pixel coordinates [..., 2]."""
+    single = (h * w) // 4
+    face = flat_index // single
+    rest = flat_index % single
+    return torch.stack([rest % h + face * h, rest // h], dim=-1)
 
 
 def _rot_component(R, i, comps):
@@ -242,9 +271,10 @@ def lift_keypoints(depth, normal, pts, dataset: str):
     nrm = bilerp(normal)
     nrm = nrm / torch.sqrt(torch.sum(nrm * nrm, dim=-1, keepdim=True) + 1e-24)
 
-    face = torch.floor_divide(x, H).to(torch.int64)
-    xstp = ((x - face * H) / H - 0.5) * 2.0
-    ystp = (0.5 - y / H) * 2.0
+    h = _divisor(H, x)
+    face = torch.floor_divide(x, h).to(torch.int64)
+    xstp = ((x - face * H) / h - 0.5) * 2.0
+    ystp = (0.5 - y / h) * 2.0
     cam = torch.stack([xstp * val, ystp * val, -val], dim=-1)
     pc = (rots[face] @ cam[..., None])[..., 0]
     return pc, nrm

@@ -26,16 +26,24 @@ class BatchNorm2d(nn.Module):
     stats (torch BatchNorm2d(track_running_stats=False) per group).
 
     `weight` is the multiplier itself; the Flax/npz parameter `scale`
-    stores weight - 1."""
+    stores weight - 1.  With `frozen`, running statistics folded into the
+    affine: y = x * weight + bias in f32 (the JAX package's `frozen` mode).
+    """
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 frozen: bool = False):
         super().__init__()
         self.eps = eps
+        self.frozen = frozen
         self.weight = nn.Parameter(1.0 + 0.02 * torch.randn(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, group=None):
         n, c, h, w = x.shape
+        if self.frozen:
+            y = x.float() * self.weight.view(1, c, 1, 1) \
+                + self.bias.view(1, c, 1, 1)
+            return y.to(x.dtype)
         g = group or n
         xf = x.float().reshape(n // g, g, c, h, w)
         mean = xf.mean(dim=(1, 3, 4), keepdim=True)

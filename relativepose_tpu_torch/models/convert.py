@@ -1,14 +1,25 @@
-"""Flax SCNet parameters -> the port's SCNet `state_dict`, in memory.
+"""Flax parameter trees <-> the port's `state_dict`s, in memory.
 
-Takes the Flax parameter tree (nested dicts of arrays) or a flat dict of
-numpy arrays with '/'-joined keys, as the shipped
-`relativepose_tpu/data/pretrained/*.npz` files hold them, and returns a
-`state_dict` for `models.scnet.SCNet`.  It reads numpy arrays only and
-writes nothing: a converted copy is never stored.
+`load_flax_params` takes a Flax parameter tree (nested dicts of arrays)
+or a flat dict of numpy arrays with '/'-joined keys, as the shipped
+`relativepose_tpu/data/pretrained/*.npz` files hold them, and loads it
+into the port's SCNet, Resnet18_8s or SegmentationHead
+(`scnet_state_dict` gives SCNet's `state_dict`).  `flax_params` goes the
+other way: a port module -> the Flax-keyed tree of numpy arrays, which
+`utils/checkpoint.py::save_params_npz` writes in the JAX package's npz
+format.  Nothing converted is written by this module.
 
-Name map: Flax `ConvBlock_i`, `DeconvBlock_i` and `Conv_i` are
-`convs.i`, `deconvs.i` and `heads.i`.  Layouts:
-  * conv kernels HWIO -> OIHW;
+Name map, one rule per block kind (torch prefix <-> Flax prefix, `{}`
+the block index):
+  * SCNet: `convs.{}` <-> `ConvBlock_{}`, `deconvs.{}` <-> `DeconvBlock_{}`,
+    `heads.{}` <-> `Conv_{}`;
+  * Resnet18_8s: `conv1`/`bn1` <-> `Conv_0`/`BatchNorm2d_0`,
+    `blocks.{}` <-> `BasicBlock_{}` (conv1, bn1, conv2, bn2, down_conv,
+    down_bn <-> Conv_0, BatchNorm2d_0, Conv_1, BatchNorm2d_1, Conv_2,
+    BatchNorm2d_2), `score8/16/32` <-> `Conv_1/2/3`;
+  * SegmentationHead: `conv` <-> `Conv_0`.
+Layouts:
+  * conv kernels HWIO <-> OIHW;
   * the deconv kernel is HWIO of an input-dilated convolution: transposed
     to [I, O, kh, kw] and flipped in kh and kw it is the ConvTranspose2d
     weight;
@@ -17,8 +28,37 @@ Name map: Flax `ConvBlock_i`, `DeconvBlock_i` and `Conv_i` are
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+
+# (torch prefix, Flax prefix, kind); kind is conv, deconv or bn
+_SCNET = (
+    ("convs.{}.conv", "ConvBlock_{}/Conv_0", "conv"),
+    ("convs.{}.bn", "ConvBlock_{}/BatchNorm2d_0", "bn"),
+    ("deconvs.{}.bn", "DeconvBlock_{}/BatchNorm2d_0", "bn"),
+    ("deconvs.{}", "DeconvBlock_{}", "deconv"),
+    ("heads.{}", "Conv_{}", "conv"),
+)
+_RESNET = (
+    ("conv1", "Conv_0", "conv"),
+    ("bn1", "BatchNorm2d_0", "bn"),
+    ("blocks.{}.conv1", "BasicBlock_{}/Conv_0", "conv"),
+    ("blocks.{}.bn1", "BasicBlock_{}/BatchNorm2d_0", "bn"),
+    ("blocks.{}.conv2", "BasicBlock_{}/Conv_1", "conv"),
+    ("blocks.{}.bn2", "BasicBlock_{}/BatchNorm2d_1", "bn"),
+    ("blocks.{}.down_conv", "BasicBlock_{}/Conv_2", "conv"),
+    ("blocks.{}.down_bn", "BasicBlock_{}/BatchNorm2d_2", "bn"),
+    ("score8", "Conv_1", "conv"),
+    ("score16", "Conv_2", "conv"),
+    ("score32", "Conv_3", "conv"),
+)
+_SEG = (("conv", "Conv_0", "conv"),)
+# leaf names: torch <-> Flax
+_LEAVES = {"conv": {"weight": "kernel", "bias": "bias"},
+           "deconv": {"weight": "kernel", "bias": "bias"},
+           "bn": {"weight": "scale", "bias": "bias"}}
 
 
 def flatten_params(params, prefix=""):
@@ -35,39 +75,87 @@ def flatten_params(params, prefix=""):
             for k, v in flat.items()}
 
 
-def scnet_state_dict(params):
-    """Flax SCNet params -> {torch name: f32 tensor}."""
+def _pattern(template, sep):
+    return re.compile(re.escape(template).replace(r"\{\}", r"(\d+)")
+                      + re.escape(sep) + r"(\w+)$")
+
+
+def _rename(key, rules, src, dst, sep_src, sep_dst):
+    """Map one parameter name across by the first rule that matches it;
+    returns (new name, kind, source leaf name)."""
+    for rule in rules:
+        m = _pattern(rule[src], sep_src).fullmatch(key)
+        if m is None:
+            continue
+        idx, leaf = m.groups()[:-1], m.group(m.lastindex)
+        names = _LEAVES[rule[2]] if src == 0 else \
+            {v: k for k, v in _LEAVES[rule[2]].items()}
+        if leaf not in names:
+            break
+        return (rule[dst].format(*idx) + sep_dst + names[leaf], rule[2],
+                leaf)
+    raise KeyError(f"unexpected parameter {key!r}")
+
+
+def _to_torch(params, rules):
     sd = {}
-    lists = {"ConvBlock": "convs", "DeconvBlock": "deconvs"}
     for key, arr in flatten_params(params).items():
-        parts = key.split("/")
-        kind, idx = parts[0].rsplit("_", 1)
-        leaf = parts[-1]
+        name, kind, leaf = _rename(key, rules, 1, 0, "/", ".")
         arr = np.asarray(arr, dtype=np.float32)
-        if kind == "Conv" and len(parts) == 2:
-            name = f"heads.{idx}"
-            if leaf == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)
-        elif kind == "ConvBlock" and parts[1] == "Conv_0":
-            name = f"convs.{idx}.conv"
-            if leaf == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)
-        elif kind == "DeconvBlock" and len(parts) == 2:
-            name = f"deconvs.{idx}"
-            if leaf == "kernel":
-                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-        elif kind in lists and parts[1] == "BatchNorm2d_0":
-            name = f"{lists[kind]}.{idx}.bn"
-            if leaf == "scale":
-                leaf, arr = "weight", arr + 1.0
-        else:
-            raise KeyError(f"unexpected SCNet parameter {key!r}")
-        leaf = "weight" if leaf == "kernel" else leaf
-        sd[f"{name}.{leaf}"] = torch.from_numpy(np.array(arr, order="C"))
+        if leaf == "kernel":
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1) if kind == "deconv" \
+                else arr.transpose(3, 2, 0, 1)
+        elif leaf == "scale":
+            arr = arr + 1.0
+        sd[name] = torch.from_numpy(np.array(arr, order="C"))
     return sd
 
 
+def scnet_state_dict(params):
+    """Flax SCNet params -> {torch name: f32 tensor}."""
+    return _to_torch(params, _SCNET)
+
+
 def load_flax_params(model, params):
-    """Load Flax SCNet params into `model` (strict); returns the model."""
-    model.load_state_dict(scnet_state_dict(params), strict=True)
+    """Load Flax params into the port's SCNet, Resnet18_8s or
+    SegmentationHead `model` (strict); returns the model."""
+    model.load_state_dict(_to_torch(params, _rules(model)), strict=True)
     return model
+
+
+def _rules(model):
+    from relativepose_tpu_torch.models.resnet import (
+        Resnet18_8s,
+        SegmentationHead,
+    )
+    if isinstance(model, Resnet18_8s):
+        return _RESNET
+    if isinstance(model, SegmentationHead):
+        return _SEG
+    return _SCNET
+
+
+def flax_params(model, grads: bool = False):
+    """The port's SCNet, Resnet18_8s or SegmentationHead -> the Flax
+    parameter tree (nested dicts of f32 numpy arrays); with `grads`, the
+    tree of the parameters' gradients (BatchNorm scales carry no
+    offset there)."""
+    rules = _rules(model)
+    tree = {}
+    values = {k: p.grad for k, p in model.named_parameters()} if grads \
+        else model.state_dict()
+    for key, t in values.items():
+        name, kind, leaf = _rename(key, rules, 0, 1, ".", "/")
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "weight" and kind == "deconv":
+            arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif leaf == "weight" and kind == "conv":
+            arr = arr.transpose(2, 3, 1, 0)
+        elif kind == "bn" and leaf == "weight" and not grads:
+            arr = arr - 1.0
+        node = tree
+        parts = name.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(arr)
+    return tree

@@ -10,14 +10,27 @@ holds its Pallas kernel to: the kernel's arccos and sum order differ from
 the plain version's); eigenvectors to a cosine of 1 - 1e-4; pipeline poses
 to 1e-3, the W difference carried through the solve; ICP poses to 1e-4
 and overlap statistics to 1e-5 (plain torch on both devices, sums in
-another order).
+another order).  The training data path bit for bit: the decoded batch
+and the dense correspondences (products with f32 constants, matmuls over
+3 coordinates and the fused multiply-add chains of
+`data/pipeline.py` round alike on both devices).  One f32 training step
+of each trainer: its metrics to 1e-4 relative (cuDNN and the CPU sum
+convolutions in another order), and the parameters after it within 1e-6
+for 99.9% of them and within 2 lr = 4e-4 for all (Adam's first step
+moves a parameter by lr * sign(gradient), which flips where a gradient
+is near 0).
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from relativepose_tpu_torch.core import overlap
+from relativepose_tpu_torch.data import datasets as dsets
+from relativepose_tpu_torch.data import device_store as dstore
+from relativepose_tpu_torch.data import pipeline as dpipe
 from relativepose_tpu_torch.data import synthetic
 from relativepose_tpu_torch.eval.harness import parse_eval_data
 from relativepose_tpu_torch.match.keypoints import (
@@ -33,6 +46,7 @@ from relativepose_tpu_torch.match.solver import (
 from relativepose_tpu_torch.ops import icp, kernels
 from relativepose_tpu_torch.pipeline import recurrent
 from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
+from relativepose_tpu_torch.train import completion, feature
 
 pytestmark = pytest.mark.gpu
 SMALL = dict(n_detect=32, n_match=16, n_random=8)
@@ -249,3 +263,71 @@ def test_overlap_on_card_matches_cpu(cuda, dataset):
     for k in out["cpu"]:
         torch.testing.assert_close(out["cuda"][k].cpu(), out["cpu"][k],
                                    rtol=1e-5, atol=1e-5)
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(to_device(v, device) for v in tree))
+    return tree.to(device)
+
+
+def store_batches(dataset, cuda):
+    """One gather from the same resident store on the CPU and the card,
+    with the CPU's draws."""
+    src = dsets.SyntheticPairs(dataset, n=3, seed=11, full_frames=False)
+    cpu = dstore.DeviceStore(src, device="cpu", with_full_frames=False)
+    card = dstore.DeviceStore(src, device=cuda, with_full_frames=False)
+    idx = torch.tensor([2, 0])
+    depth = dstore.decode_batch(*(cpu.arrays[k][idx] for k in
+                                  ("rgb", "norm", "depth", "segm")))[2]
+    draws = dpipe.draw_pair_batch(depth, dataset,
+                                  torch.Generator().manual_seed(5))
+    return (dstore.gather_batch(cpu.arrays, idx, dataset, draws=draws),
+            dstore.gather_batch(card.arrays, idx.to(cuda), dataset,
+                                draws=to_device(draws, cuda)))
+
+
+@pytest.mark.parametrize("dataset", ["suncg", "scannet"])
+def test_training_batch_on_card_matches_cpu(cuda, dataset):
+    cpu, card = store_batches(dataset, cuda)
+    for k in ("rgb", "norm", "depth", "segm", "dataMask"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    for k in ("idx_src", "idx_tgt", "valid"):
+        assert torch.equal(card["denseCorres"][k].cpu(),
+                           cpu["denseCorres"][k]), k
+    assert bool(cpu["denseCorres"]["valid"].all())
+
+
+@pytest.mark.parametrize("trainer", ["feature", "completion"])
+def test_training_step_on_card_matches_cpu(cuda, trainer):
+    batch, _ = store_batches("suncg", cuda)
+    gen = torch.Generator().manual_seed(6)
+    if trainer == "feature":
+        cfg = feature.FeatureTrainConfig(base_width=8)
+        state = feature.init_state(cfg, "cpu", seed=1)
+        draws = feature.draw_negatives(cfg, batch, gen)
+        step = feature.train_step
+    else:
+        cfg = completion.CompletionTrainConfig(ngf=8, base_width=8)
+        state = completion.init_state(cfg, "cpu", seed=1)
+        draws = completion.draw(cfg, batch, gen)
+        step = completion.train_step
+    card = copy.deepcopy(state)
+    for m in list(card.models.values()) + list(card.frozen.values()):
+        m.to(cuda)
+    card.optimizer = type(state.optimizer)(card.parameters(),
+                                           **state.optimizer.defaults)
+    for p in card.parameters():
+        p.grad = torch.zeros_like(p)
+    m_cpu = step(state, batch, draws, cfg)
+    m_card = step(card, to_device(batch, cuda), to_device(draws, cuda), cfg)
+    for k, v in m_cpu.items():
+        np.testing.assert_allclose(float(m_card[k]), float(v), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    d = torch.cat([(a.detach().cpu() - b.detach()).abs().ravel() for a, b in
+                   zip(card.parameters(), state.parameters())])
+    assert float(d.max()) <= 4e-4
+    assert float((d <= 1e-6).float().mean()) >= 0.999
+

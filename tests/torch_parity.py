@@ -154,3 +154,59 @@ def run_oracle_both(ds, dt, key_seed, jcfg, tcfg, hp_j=None, hp_t=None):
         hp_t or SolverHyperParams(), tcfg, draws=draws,
         return_step_poses=True, device="cpu")
     return steps_j, T, steps_t, draws
+
+
+def jax_corres_draws(keys, depth_s, dataset):
+    """(q_idx, pick_u) that `relativepose_tpu.data.pipeline.
+    dense_correspondences` draws from each key of keys [B]; depth_s:
+    [B, H, W] numpy depth of each pair's view 0 (masked queries)."""
+    from relativepose_tpu import config as jconfig
+    from relativepose_tpu.core import skybox as jsky
+    from relativepose_tpu.data import pipeline as jpipe
+    prm = jpipe.CORRES_PARAMS[jconfig.canonical_dataset(dataset)]
+    q, u = [], []
+    for b in range(keys.shape[0]):
+        k1, k2 = jax.random.split(keys[b])
+        if prm["masked_queries"]:
+            _, val = jsky.pano_to_pointcloud(jnp.asarray(depth_s[b]), dataset)
+            pq = val.astype(jnp.float32) + 1e-9
+            q.append(jax.random.choice(k1, val.shape[0], (prm["n_query"],),
+                                       replace=True, p=pq / pq.sum()))
+        else:
+            q.append(jax.random.randint(k1, (prm["n_query"],), 0,
+                                        depth_s[b].size))
+        u.append(jax.random.uniform(k2, (prm["n_corres"],)))
+    return (torch.from_numpy(np.stack(q)).long(),
+            torch.from_numpy(np.stack(u)))
+
+
+def jax_pair_draws(keys, depth_s, dataset):
+    """The draws `relativepose_tpu.data.pipeline.assemble_pair_batch` makes
+    from each pair key of keys [B], as the port's `PairDraws`."""
+    from relativepose_tpu_torch.data.pipeline import PairDraws
+    splits = [jax.random.split(keys[b], 3) for b in range(keys.shape[0])]
+    q_idx, pick_u = jax_corres_draws(jnp.stack([s[0] for s in splits]),
+                                     depth_s, dataset)
+    axis, angle, trans = [], [], []
+    for _, k_r0, k_r1 in splits:
+        per = []
+        for kr in (k_r0, k_r1):
+            ka, kt = jax.random.split(kr)
+            kax, kan = jax.random.split(ka)
+            per.append((jax.random.uniform(kax, (3,)),
+                        jax.random.normal(kan, ()),
+                        jax.random.normal(kt, (3,))))
+        axis.append(np.stack([np.asarray(p[0]) for p in per]))
+        angle.append(np.stack([np.asarray(p[1]) for p in per]))
+        trans.append(np.stack([np.asarray(p[2]) for p in per]))
+    return PairDraws(q_idx, pick_u, *(torch.from_numpy(np.stack(x))
+                                      for x in (axis, angle, trans)))
+
+
+def synthetic_pair_arrays(seeds, dataset):
+    """[B, 2, ...] numpy rgb / norm / depth / segm / pose of synthetic
+    pairs (no kinect frames)."""
+    ps = [synthetic.make_pair(s, dataset, max_baseline=0.5,
+                              full_frames=False) for s in seeds]
+    return {k: np.stack([np.stack([p[0][k], p[1][k]]) for p in ps])
+            for k in ("rgb", "norm", "depth", "segm", "pose")}
