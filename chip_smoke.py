@@ -52,13 +52,35 @@ Phases, each ending with one line that gives its own seconds:
      10 s, then `cli.train_completion --featurelearning 1 --feat_ckpt`
      the npz checkpoint the feature run just saved; each must write its
      npz checkpoint and log only finite losses;
+  6c. pose fine-tuning through the pipeline at the fine-tuning CLI's
+     defaults (SCNet from 6b's npz at ngf 64, bf16 compute with f32
+     parameters, batch 4 pairs, 2 recurrence steps with remat, the full
+     keypoint budget, irls+sm with 30 power iterations and the per-step
+     sigma table, both kernels off): first one forward+backward with
+     remat and one without on the same draws (equal losses, gradient
+     norms within 1e-3, cosine >= 0.9999, remat's peak memory the lower),
+     then 1 warm-up step and 1 step timed by CUDA events beside the host
+     time to enqueue a step: ms per step, pairs/s, peak device memory,
+     finite losses and a positive gradient norm, no kernel launched; then
+     `cli.finetune_pose.main` (8 synthetic pairs, at least 4 kept by the
+     overlap filter, 1 step) whose npz, read by the evaluation CLI's
+     loader, must give finite orthonormal poses on 5b's pairs;
+  6d. sigma tuning: `cli.tune_sigma.main` on 8 pairs, 3 levels, SCNet
+     from 6c's npz, first by finite differences (1 iteration; K1 in every
+     objective evaluation), then by exact-gradient Adam (1 step) on the
+     same primitive cache: finite positive [3, 4] tables; the level-0
+     objective with K1 within 1e-4 of the plain W build at two sigmas;
+     seconds per objective evaluation (K1) and per value-and-gradient step
+     (plain W);
   5f. last, one call of 5b's and one of 5c's first run (K1) and one
      completion step of 6a under torch.profiler (time per stage, the
      device's idle share, the costliest kernels).
 
 Every pipeline phase sets the launch counts to 0 just before it drives the
 pipeline and reads them just after; a kernel's `launches` in the JSON line
-is the sum over phases 5b-5e.  The training phases 6a and 6b reach neither
+is the sum over phases 5b-5e, 6c's evaluation call and 6d (the
+comparisons of a kernel with its plain version are not counted).  The
+training phases 6a and 6b and 6c's fine-tuning steps reach neither
 kernel; their counts are printed.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -71,8 +93,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 BUDGET_S = 900.0          # hard limit for the whole run, build included
@@ -754,23 +778,21 @@ def _leaves(tree):
             yield v
 
 
-def phase_train_clis(card):
+def phase_train_clis(card, work):
     """6b: the feature CLI, then the completion CLI against the netF it
-    saved, in a temporary directory, at the CLIs' defaults."""
-    import shutil
-    import tempfile
+    saved, in the directory `work`, at the CLIs' defaults.  Returns the
+    completion run's npz checkpoint."""
     from relativepose_tpu_torch.cli import train_completion, train_feature
     from relativepose_tpu_torch.ops import kernels
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     cwd = os.getcwd()
     cache = os.environ.get("RPTPU_SYNTH_CACHE")
     # the completion run reads the pairs the feature run rendered
-    os.environ["RPTPU_SYNTH_CACHE"] = os.path.join(tmp, "pairs")
+    os.environ["RPTPU_SYNTH_CACHE"] = os.path.join(work, "pairs")
     common = ["--dataList", "synthetic", "--debug", "--max_epoch", "1",
               "--train_duration", "10", "--batch_size", str(TRAIN_B), "--rm",
               "--device", "cuda"]
     try:
-        os.chdir(tmp)
+        os.chdir(work)
         kernels.reset_launch_counts()
         t = time.perf_counter()
         feat_ckpt = train_feature.main(["--exp", "feat"] + common)
@@ -790,7 +812,257 @@ def phase_train_clis(card):
             os.environ.pop("RPTPU_SYNTH_CACHE", None)
         else:
             os.environ["RPTPU_SYNTH_CACHE"] = cache
-        shutil.rmtree(tmp, ignore_errors=True)
+    return os.path.abspath(os.path.join(work, comp_ckpt))
+
+
+FT_B = 4            # pairs per fine-tuning step, the CLI's default
+FT_STEPS = 2        # recurrence depth while fine-tuning, the CLI's default
+SIGMA0 = (0.2615, 0.2615, 0.04, 0.01)
+
+
+def phase_finetune(card, comp_ckpt, data, work, launches):
+    """6c: the fine-tuning step at the CLI's defaults (SCNet from 6b's npz,
+    bf16 compute, batch 4, remat) timed, against remat=False on the same
+    draws, then `cli.finetune_pose.main`, whose npz must drive the
+    evaluation pipeline.  Returns that npz."""
+    import dataclasses
+    import argparse
+    import re
+    import numpy as np
+    import torch
+    from relativepose_tpu_torch.cli import finetune_pose as ft_cli
+    from relativepose_tpu_torch.cli.evaluate import (
+        scnet_fn_factory_from_checkpoint,
+    )
+    from relativepose_tpu_torch.data import datasets as dsets
+    from relativepose_tpu_torch.data.device_store import DeviceStore
+    from relativepose_tpu_torch.eval import harness
+    from relativepose_tpu_torch.match.solver import SolverHyperParams
+    from relativepose_tpu_torch.models import convert
+    from relativepose_tpu_torch.models.scnet import SCNet
+    from relativepose_tpu_torch.ops import kernels
+    from relativepose_tpu_torch.pipeline import recurrent
+    from relativepose_tpu_torch.train import finetune_pose as ft
+    from relativepose_tpu_torch.utils.checkpoint import load_params_npz
+
+    # the fine-tuning CLI's pipeline: both kernels off (no backward)
+    cfg = dataclasses.replace(
+        pipeline_config("suncg", remat=True,
+                        solver=dict(pallas_w_build=False)),
+        alter_steps=FT_STEPS)
+    hp = harness.hyper_params_from_table(
+        harness.default_sigma_table("suncg")[:FT_STEPS],
+        alter_steps=FT_STEPS)
+    ft_cfg = ft.PoseFinetuneConfig(dtype=torch.bfloat16)
+    net = SCNet(snumclass=cfg.snumclass, ngf=64, dtype=torch.bfloat16)
+    convert.load_flax_params(net, load_params_npz(comp_ckpt))
+    state = ft.init_state(net.cuda(), ft_cfg)
+    store = DeviceStore(dsets.SyntheticPairs("suncg", n=2 * FT_B, seed=0,
+                                             view_detail_jitter=True),
+                        device="cuda")
+    pick = np.random.RandomState(0)
+    batches = [ft.gather_eval_pairs(store.arrays, torch.from_numpy(
+        pick.choice(store.n, FT_B, replace=False)).cuda()) for _ in range(2)]
+
+    # first (it also warms up): forward+backward with and without remat
+    kernels.reset_launch_counts()
+    out = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the rematerialised steps run cuDNN deterministically (their
+        # recompute must repeat the forward); so does the plain run here
+        with recurrent.cudnn_deterministic():
+            loss, _ = ft.loss_fn(
+                net, None, *batches[0], dataclasses.replace(cfg, remat=remat),
+                hp, ft_cfg,
+                generator=torch.Generator(device="cuda").manual_seed(9))
+            g = torch.autograd.grad(loss, list(net.parameters()),
+                                    allow_unused=True)
+        g = torch.cat([x.float().flatten() for x in g if x is not None])
+        torch.cuda.synchronize()
+        out[remat] = (float(loss.detach()), g,
+                      torch.cuda.max_memory_allocated())
+    (l1, g1, p1), (l0, g0, p0) = out[True], out[False]
+    cos = float(torch.nn.functional.cosine_similarity(g1, g0, dim=0))
+    n1, n0 = float(g1.norm()), float(g0.norm())
+    print(f"finetune forward+backward on one batch: remat loss {l1:.6f}, "
+          f"plain {l0:.6f}; gradient norms {n1:.6g} / {n0:.6g}, cosine "
+          f"{cos:.7f}; peak device memory remat {p1 / 2**30:.3f} GiB, "
+          f"plain {p0 / 2**30:.3f} GiB; on {card}", flush=True)
+    if l1 != l0 or abs(n1 - n0) > 1e-3 * n0 or cos < 0.9999 or \
+            not p1 < p0:
+        raise AssertionError("remat does not match the plain run")
+    del g1, g0
+
+    step = ft.make_finetune_step(cfg, hp, ft_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # a full step first: the timed one is warm (the optimizer's state is
+    # allocated, the step's kernels have run)
+    warm = step(state, *batches[0], generator=gen)
+    torch.cuda.synchronize()
+    host, seen = 0.0, []
+    start.record()
+    for b in batches[1:]:
+        t = time.perf_counter()
+        seen.append(step(state, *b, generator=gen))
+        host += time.perf_counter() - t
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / len(seen)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    for m in [warm] + seen:
+        check_finite("finetune", m)
+    gnorm = float(seen[-1]["grad_norm"])
+    if not gnorm > 0:
+        raise AssertionError(f"finetune: grad_norm {gnorm}")
+    if any(counts.values()):
+        raise AssertionError(f"finetune steps launched kernels: {counts}")
+    print(f"finetune step (remat, batch {FT_B}, {FT_STEPS} recurrence "
+          f"steps, bf16 SCNet at ngf 64): {ms:.3f} ms per step "
+          f"({FT_B / ms * 1e3:.3f} pairs/s; {len(seen)} step(s) after one "
+          f"warm-up step, CUDA events); host time to "
+          f"enqueue a step {host / len(seen) * 1e3:.3f} ms; peak device "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated), "
+          f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+          f"GiB allocated before; losses "
+          f"{[round(float(m['loss']), 4) for m in seen]}, grad norm "
+          f"{gnorm:.4g}; kernel launches {counts}; on {card}", flush=True)
+    del state
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        t = time.perf_counter()
+        # 1 step on 8 pairs (not 3 on 32): 6c and 6d together get at
+        # most 180 s
+        ckpt = ft_cli.main(["--exp", "ft", "--rm", "--comp_ckpt", comp_ckpt,
+                            "--synthetic_n", "8", "--steps", "1",
+                            "--batch_pairs", str(FT_B), "--log_every", "1",
+                            "--save_every", "1", "--device", "cuda"])
+        secs = time.perf_counter() - t
+        with open(os.path.join("experiments", "exp_ft", "exp_ft.log")) as f:
+            log = f.read()
+    finally:
+        os.chdir(cwd)
+    kept = int(re.search(r"(\d+)/\d+ pairs at overlap", log).group(1))
+    losses = [float(x) for x in re.findall(r"step \d+/\d+ loss (\S+)", log)]
+    print(f"finetune_pose CLI: {secs:.1f} s, {kept}/8 pairs kept by the "
+          f"overlap filter, losses {losses}; on {card}", flush=True)
+    if kept < FT_B or len(losses) != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"finetune_pose CLI: {kept} kept, {losses}")
+
+    args = argparse.Namespace(
+        torch_comp_ckpt=None, comp_ckpt=ckpt, outputType="rgbdnsf",
+        snumclass=15, featureDim=32, ngf=64, internal_size="224x224",
+        batchnorm=1, skipLayer=1, useTanh=1, bf16=1, device="cuda")
+    factory, _ = scnet_fn_factory_from_checkpoint(args, None)
+    data_s, data_t, _ = data
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        T = recurrent.estimate_pose_via_completion(
+            factory(None, None, None), data_s, data_t, SolverHyperParams(),
+            pipeline_config("suncg"),
+            generator=torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add_counts(launches, counts)
+    check_poses(T)
+    print(f"the fine-tuned npz in the evaluation pipeline: finite "
+          f"orthonormal poses of {B} pairs, launches {counts}", flush=True)
+    return ckpt
+
+
+def phase_tune_sigma(card, ckpt, work, launches):
+    """6d: `cli.tune_sigma.main` with the finite differences (K1 in every
+    objective evaluation), then exact-gradient Adam on the same cache;
+    K1 against the plain W build on the level-0 objective; the seconds of
+    an objective evaluation and of a gradient step."""
+    import numpy as np
+    import torch
+    from relativepose_tpu_torch.cli import tune_sigma
+    from relativepose_tpu_torch.match.solver import SolverStaticConfig
+    from relativepose_tpu_torch.ops import kernels
+    from relativepose_tpu_torch.tune import sigma as st
+    cache = os.path.join(work, "prims.npy")
+    # 8 pairs and 1 iteration of each method (not 16 and 4): 6c and 6d
+    # together get at most 180 s
+    common = ["--num_pairs", "8", "--rlevel", "3", "--comp_ckpt", ckpt,
+              "--cache", cache, "--device", "cuda"]
+    tables = {}
+    k1 = 0
+    for method, extra in (("fd", ["--max_iter", "1"]),
+                          ("grad", ["--grad_steps", "1"])):
+        mtime = os.path.getmtime(cache) if os.path.exists(cache) else None
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        table = tune_sigma.main(common + extra + [
+            "--tune_method", method, "--out",
+            os.path.join(work, f"sigma_{method}.txt")])
+        secs = time.perf_counter() - t
+        counts = read_counts()
+        add_counts(launches, counts)
+        k1 += counts["pair_weight_matrix"]
+        kept = [bool(np.allclose(r, SIGMA0)) for r in table]
+        print(f"tune_sigma --tune_method {method}: {secs:.1f} s, launches "
+              f"{counts}, table {np.round(table, 5).tolist()} (rows kept "
+              f"at sigma0 by the held-out gate: {kept}); on {card}",
+              flush=True)
+        if table.shape != (3, 4) or not np.isfinite(table).all() or \
+                not (table > 0).all():
+            raise AssertionError(f"tune_sigma {method}: {table}")
+        if method == "fd" and counts["pair_weight_matrix"] == 0:
+            raise AssertionError("tune_sigma fd did not launch K1")
+        if method == "grad" and (os.path.getmtime(cache) != mtime
+                                 or any(counts.values())):
+            raise AssertionError("tune_sigma grad did not reuse the cache")
+        tables[method] = table
+
+    blob = np.load(cache, allow_pickle=True).item()
+    prims = st.stack_primitives(blob["primitives"][0], "cuda")
+    rgt = blob["R_gt"]
+    obj = {k: st.make_objective(*prims, rgt, SolverStaticConfig(
+        pallas_w_build=k)) for k in (True, False)}
+    worst = 0.0
+    for sig in (SIGMA0, (0.3, 0.2, 0.05, 0.02)):
+        with torch.no_grad():
+            v1, v0 = (float(obj[k](np.asarray(sig, np.float32)))
+                      for k in (True, False))
+        rel = abs(v1 - v0) / max(abs(v0), 1e-30)
+        worst = max(worst, rel)
+        print(f"level-0 objective at sigma {sig}: K1 {v1:.8g}, plain W "
+              f"build {v0:.8g}, relative difference {rel:.3e}", flush=True)
+    if worst > 1e-4:
+        raise AssertionError(f"K1 objective off the plain one by {worst}")
+
+    def evals():
+        with torch.no_grad():
+            obj[True](np.asarray(SIGMA0, np.float32))
+
+    def grad_step():
+        log_sig = torch.log(torch.tensor(SIGMA0)).requires_grad_(True)
+        obj[False](torch.exp(log_sig)).backward()
+
+    # both paths are warm: the comparison above and the 'grad' run
+    times = {}
+    for name, fn, reps in (("fd", evals, 2), ("grad", grad_step, 1)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) / reps
+    print(f"sigma objective over {len(blob['primitives'][0])} pairs of "
+          f"level 0: {times['fd']:.4f} s per evaluation with K1 (the "
+          f"finite-difference path), {times['grad']:.4f} s per "
+          f"value-and-gradient step with the plain W build; K1 launched "
+          f"{k1} times in 6d's two runs; on {card}", flush=True)
 
 
 def profile_call(call, wall_s):
@@ -877,7 +1149,15 @@ def main():
     ph.run("5d options", phase_options, data, trans_5b, launches)
     ph.run("5e evaluate", phase_evaluate, launches)
     profiled_tr = ph.run("6a training steps", phase_train_steps, card)
-    ph.run("6b training CLIs", phase_train_clis, card)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        comp = ph.run("6b training CLIs", phase_train_clis, card, work)
+        ft_ckpt = ph.run("6c pose fine-tuning", phase_finetune, card, comp,
+                         data, work, launches)
+        ph.run("6d sigma tuning", phase_tune_sigma, card, ft_ckpt, work,
+               launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # last: the profiler can leave the host slower for later calls
     ph.run("5f profile suncg", profile_call, *profiled)
     ph.run("5f profile scannet", profile_call, *profiled_sc)

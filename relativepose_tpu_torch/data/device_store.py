@@ -59,8 +59,10 @@ def encode_depth(a):
         np.uint16)
 
 
-def _decode(x, name):
-    # a product with an f32 value is exact on every device
+def decode(x, name: str):
+    """An encoded 'rgb' / 'norm' / 'depth' tensor -> f32 (depth as
+    non-negative millimetres); a product with an f32 value rounds alike on
+    every device."""
     return x.to(torch.float32) * float(np.float32(1.0)
                                        / np.float32(_SCALES[name]))
 
@@ -78,7 +80,7 @@ def decode_batch(rgb, norm, depth, segm):
     metres, int64 segm.  depth is uint16 millimetres or their int16 bit
     pattern."""
     mm = depth.to(torch.int32) & 0xFFFF
-    return (_decode(rgb, "rgb"), _decode(norm, "norm"), _decode(mm, "depth"),
+    return (decode(rgb, "rgb"), decode(norm, "norm"), decode(mm, "depth"),
             segm.to(torch.int64))
 
 

@@ -14,9 +14,9 @@ Port of `relativepose_tpu/match/keypoints.py`:
     observation weights 1.0 / 0.99.
 
 Randomness: where the JAX package draws from `jax.random.choice(p=...)` or
-`jax.random.uniform`, these functions take the draws as optional tensor
-arguments (`KeypointDraws`), and draw them from a `torch.Generator` when
-they are absent.  A test hands both packages the same draws.
+`jax.random.uniform`, these functions take the draws as tensor arguments
+(`KeypointDraws`); `draw_keypoints` alone makes them, from a
+`torch.Generator`.  A test hands both packages the same draws.
 
 Ties: `lax.top_k` puts equal values in index order; the port selects with
 a stable descending sort, which gives the same order.
@@ -73,10 +73,10 @@ class KeypointDraws:
     these come from keys 0, 1, 2 and 3 of `jax.random.split(key, 6)`.
     """
 
-    sel_t1: Optional[torch.Tensor] = None
-    sel_s: Optional[torch.Tensor] = None
-    rnd_u: Optional[torch.Tensor] = None
-    sel_t2: Optional[torch.Tensor] = None
+    sel_t1: torch.Tensor
+    sel_s: torch.Tensor
+    rnd_u: torch.Tensor
+    sel_t2: torch.Tensor
 
 
 def topk_stable(x, k: int):
@@ -169,17 +169,18 @@ def _take(x, idx):
                         .expand(idx.shape + x.shape[2:]))
 
 
-def _select_queries(desc, valid, n, sel=None, generator=None):
-    """Pick n descriptors per pair at random among the valid ones.
-
-    desc: [B, K, F]; valid: [B, K].  sel: [B, n] indices, drawn with
-    probability proportional to valid + 1e-9 when absent."""
-    if sel is None:
-        probs = valid.to(torch.float32) + 1e-9
-        probs = probs / probs.sum(-1, keepdim=True)
-        sel = torch.multinomial(probs, n, replacement=True,
-                                generator=generator)
+def _select_queries(desc, valid, sel):
+    """The query descriptors desc [B, K, F] and their valid [B, K] flags
+    at the drawn indices sel [B, n] (`_draw_indices`)."""
     return _take(desc, sel), _take(valid, sel)
+
+
+def _draw_indices(valid, n, generator=None):
+    """[B, n] indices drawn with probability proportional to valid + 1e-9
+    (`jax.random.choice(p=...)` in the JAX package)."""
+    probs = valid.to(torch.float32) + 1e-9
+    probs = probs / probs.sum(-1, keepdim=True)
+    return torch.multinomial(probs, n, replacement=True, generator=generator)
 
 
 def _distance_heatmaps(q, feat):
@@ -204,12 +205,11 @@ def _nms_to_keypoints(d, sel_valid, hw):
     return pts, valid & torch.repeat_interleave(sel_valid, AUG_TOPK, dim=1)
 
 
-def augment_with_feature_matches(desc_query, query_valid, feat_other,
-                                 n_match: int, sel=None, generator=None):
-    """Query descriptors [B, K, F] of one view matched in the OTHER view's
-    map [B, H, W, F]: (pts [B, 2*n_match, 2], valid)."""
-    q, sel_valid = _select_queries(desc_query, query_valid, n_match, sel,
-                                   generator)
+def augment_with_feature_matches(desc_query, query_valid, feat_other, sel):
+    """Query descriptors [B, K, F] of one view, picked at the drawn
+    indices sel [B, n_match], matched in the OTHER view's map
+    [B, H, W, F]: (pts [B, 2*n_match, 2], valid)."""
+    q, sel_valid = _select_queries(desc_query, query_valid, sel)
     d = _distance_heatmaps(q, feat_other)
     return _nms_to_keypoints(d, sel_valid, feat_other.shape[1:3])
 
@@ -225,15 +225,11 @@ def in_observed_region(pts, mask_method: str):
     raise ValueError(mask_method)
 
 
-def random_unobserved_points(n_random: int, mask_method: str, batch: int,
-                             u=None, generator=None, device="cuda"):
+def random_unobserved_points(u, mask_method: str):
     """Uniform pano points outside the observed region, per pair.
 
-    u: [B, 2, n_random] uniforms in [0, 1) (x row, y row), drawn from
-    `generator` when absent.  Returns (pts [B, n_random, 2], valid)."""
-    if u is None:
-        u = torch.rand((batch, 2, n_random), generator=generator,
-                       device=device)
+    u: [B, 2, n_random] uniforms in [0, 1) (x row, y row).  Returns
+    (pts [B, n_random, 2], valid)."""
     xs = torch.clamp((u[:, 0] * W).to(torch.int32), 0, W - 2)
     ys = torch.clamp((u[:, 1] * H).to(torch.int32), 0, H - 2)
     pts = torch.stack([xs, ys], dim=-1).to(torch.float32)
@@ -242,6 +238,22 @@ def random_unobserved_points(n_random: int, mask_method: str, batch: int,
 
 def _normalized(pts):
     return pts / torch.tensor([W, H], dtype=pts.dtype, device=pts.device)
+
+
+def draw_keypoints(det_s_valid, det_t_valid, cfg: KeypointConfig,
+                   mask_method: str = "second",
+                   generator=None) -> KeypointDraws:
+    """All the draws of one `build_keypoint_sets` call, made from
+    `generator`.  det_*_valid: [B, n_detect] detection masks
+    (`detect_observed`)."""
+    b = det_s_valid.shape[0]
+    sel_t1 = _draw_indices(det_s_valid, cfg.n_match, generator)
+    sel_s = _draw_indices(det_t_valid, cfg.n_match, generator)
+    rnd_u = torch.rand((b, 2, cfg.n_random), generator=generator,
+                       device=det_s_valid.device)
+    _, rnd_valid = random_unobserved_points(rnd_u, mask_method)
+    sel_t2 = _draw_indices(rnd_valid, cfg.n_random, generator)
+    return KeypointDraws(sel_t1, sel_s, rnd_u, sel_t2)
 
 
 def detect_observed(rgb, cfg: KeypointConfig, gray_full=None):
@@ -277,20 +289,22 @@ def build_keypoint_sets(rgb_s, rgb_t, feat_s, feat_t, cfg: KeypointConfig,
     rgb_s/rgb_t: [B, H, W, 3] masked BGR 0..255; feat_s/feat_t:
     [B, H, W, F] descriptor maps; gray_full_s/t: [B, 480, 640] ScanNet
     frames (see `detect_observed`); det_s/det_t: optional
-    `detect_observed` results.  Returns (pts_s, valid_s, w_s, pts_t,
-    valid_t, w_t) with pts [B, capacity, 2] float pano coords and w 1.0
-    observed / 0.99 outside.
+    `detect_observed` results; draws: `KeypointDraws`, made from
+    `generator` by `draw_keypoints` when absent.  Returns (pts_s,
+    valid_s, w_s, pts_t, valid_t, w_t) with pts [B, capacity, 2] float
+    pano coords and w 1.0 observed / 0.99 outside.
     """
     if feat_s.shape[1:3] != feat_t.shape[1:3]:
         raise ValueError(f"view shapes differ: {feat_s.shape} {feat_t.shape}")
-    draws = draws or KeypointDraws()
-    b = feat_s.shape[0]
     if det_s is None:
         det_s = detect_observed(rgb_s, cfg, gray_full_s)
     if det_t is None:
         det_t = detect_observed(rgb_t, cfg, gray_full_t)
     det_s, det_s_valid = det_s
     det_t, det_t_valid = det_t
+    if draws is None:
+        draws = draw_keypoints(det_s_valid, det_t_valid, cfg, mask_method,
+                               generator)
 
     desc_s = interpolate_normalized(feat_s, _normalized(det_s))
     desc_t = interpolate_normalized(feat_t, _normalized(det_t))
@@ -298,15 +312,11 @@ def build_keypoint_sets(rgb_s, rgb_t, feat_s, feat_t, cfg: KeypointConfig,
     # both augmentation directions and the random-point matches go
     # through one concatenated heatmap stack and one topk_nms, as in the
     # JAX package
-    q_t1, q_t1_valid = _select_queries(desc_s, det_s_valid, cfg.n_match,
-                                       draws.sel_t1, generator)
-    q_s, q_s_valid = _select_queries(desc_t, det_t_valid, cfg.n_match,
-                                     draws.sel_s, generator)
-    rnd_s, rnd_s_valid = random_unobserved_points(
-        cfg.n_random, mask_method, b, draws.rnd_u, generator, feat_s.device)
+    q_t1, q_t1_valid = _select_queries(desc_s, det_s_valid, draws.sel_t1)
+    q_s, q_s_valid = _select_queries(desc_t, det_t_valid, draws.sel_s)
+    rnd_s, rnd_s_valid = random_unobserved_points(draws.rnd_u, mask_method)
     desc_rnd = interpolate_normalized(feat_s, _normalized(rnd_s))
-    q_t2, q_t2_valid = _select_queries(desc_rnd, rnd_s_valid, cfg.n_random,
-                                       draws.sel_t2, generator)
+    q_t2, q_t2_valid = _select_queries(desc_rnd, rnd_s_valid, draws.sel_t2)
 
     d_t = _distance_heatmaps(torch.cat([q_t1, q_t2], 1), feat_t)
     d_s = _distance_heatmaps(q_s, feat_s)

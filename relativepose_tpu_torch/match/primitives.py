@@ -22,19 +22,19 @@ def extract_primitives(rgb_s, rgb_t, depth_s, depth_t, normal_s, normal_t,
                        mask_method: str = "second",
                        do_completion: bool = True, gray_full_s=None,
                        gray_full_t=None, det_s=None, det_t=None,
-                       draws=None, generator=None):
+                       draws=None):
     """Returns (data_s, data_t) solver-ready dicts (pc/normal/feat/weight/
     valid), each with [B, kp_cfg.capacity] rows.
 
     With `do_completion` False, keypoints outside the observed region are
     invalidated.  gray_full_s/t: ScanNet full frames for detection;
     det_s/det_t: precomputed `keypoints.detect_observed` results; draws:
-    `keypoints.KeypointDraws` or None.
+    `keypoints.KeypointDraws`.
     """
     pts_s, valid_s, w_s, pts_t, valid_t, w_t = kp.build_keypoint_sets(
         rgb_s, rgb_t, feat_s, feat_t, kp_cfg, mask_method,
         gray_full_s=gray_full_s, gray_full_t=gray_full_t, det_s=det_s,
-        det_t=det_t, draws=draws, generator=generator)
+        det_t=det_t, draws=draws)
 
     pc_s, nrm_s = skybox.lift_keypoints(depth_s, normal_s, pts_s, dataset)
     pc_t, nrm_t = skybox.lift_keypoints(depth_t, normal_t, pts_t, dataset)

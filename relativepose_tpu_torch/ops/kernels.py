@@ -16,7 +16,11 @@ kernel here, with its source in `csrc/`:
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches the kernel or raises; nothing falls back.  Each wrapper
-counts its launches (`KERNELS[name].launches`).
+counts its launches (`KERNELS[name].launches`).  The kernels have no
+backward, as the Pallas kernels have no autodiff rule: a CUDA call whose
+inputs or sigmas require grad while grad mode is on raises
+(`check_no_grad`) instead of returning a result that silently drops the
+gradient.  The plain versions stay differentiable.
 
 Build: at first use, `nvcc` compiles each source into a shared library with
 a plain C interface under `relativepose_tpu_torch/build/` (one process per
@@ -163,6 +167,27 @@ def _check_cuda(name, tensors, dtypes):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+_HP_FIELDS = ("sigma_dist", "sigma_angle1", "sigma_angle2", "dist_thre",
+              "dist_sep_thre", "angle_thre")
+
+
+def check_no_grad(name, tensors, hp=None):
+    """Raise if grad mode is on and any of `tensors`, or a tensor field of
+    the hyper-parameters `hp`, requires grad: the CUDA kernels have no
+    backward, and their results would carry no gradient."""
+    if not torch.is_grad_enabled():
+        return
+    fields = [] if hp is None else [getattr(hp, f) for f in _HP_FIELDS]
+    if any(isinstance(t, torch.Tensor) and t.requires_grad
+           for t in (*tensors, *fields)):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            "requires grad; run it under torch.no_grad(), or turn it off "
+            "where gradients are needed (SolverStaticConfig("
+            "pallas_w_build=False, use_pallas=False), as the JAX package's "
+            "grad paths do)")
+
+
 # ---------------------------------------------------------------------------
 # K1: pair-consistency weight matrix
 # ---------------------------------------------------------------------------
@@ -286,11 +311,13 @@ def pair_weight_matrix(ps, pt, ns, nt, f, obs_prod, cvalid, hp):
     """W [B, C, C] and counts, as `pair_weight_matrix_plain` returns them.
 
     CUDA tensors go to the CUDA kernel; CPU tensors to the plain version.
-    The hyper-parameters are read as Python floats (f32 in the kernel).
+    The hyper-parameters are read as Python floats (f32 in the kernel),
+    one host read per tensor field.
     """
     if ps.device.type == "cpu":
         return pair_weight_matrix_plain(ps, pt, ns, nt, f, obs_prod, cvalid,
                                         hp)
+    check_no_grad("pair_weight_matrix", (ps, pt, ns, nt, f, obs_prod), hp)
     comps = pack_components(ps, pt, ns, nt, f, obs_prod, cvalid)
     _check_cuda("pair_weight_matrix", [comps], [torch.float32])
     if comps.dim() != 3 or comps.shape[1] != 16:
@@ -353,6 +380,7 @@ def power_iteration(W, h, iters: int):
     """`power_iteration_plain` on the CPU, the CUDA kernel on CUDA."""
     if W.device.type == "cpu":
         return power_iteration_plain(W, h, iters)
+    check_no_grad("power_iteration", (W, h))
     _check_cuda("power_iteration", [W, h], [torch.float32, torch.float32])
     if W.dim() != 3 or W.shape[1] != W.shape[2] or h.shape != W.shape[:2]:
         raise ValueError(f"power_iteration: bad shapes {tuple(W.shape)} "

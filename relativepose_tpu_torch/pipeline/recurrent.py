@@ -14,16 +14,27 @@ Port of `relativepose_tpu/pipeline/recurrent.py`.  Per recurrence step:
 A Python loop over `alter_steps` takes the place of `lax.scan`; every
 tensor carries a leading pair dimension and no loop runs over pairs.  DoG
 detection runs once per view; for ScanNet on the 480x640 'rgb_full'
-frames.  `remat` (rematerialisation for gradients through the pipeline)
-comes with the training slice and raises NotImplementedError.
+frames.  Every step's keypoint draws are made once, before the loop.
+
+With `remat`, each step runs under `torch.utils.checkpoint` (the
+counterpart of `jax.checkpoint`): its activations are dropped after the
+forward and recomputed in the backward, so training through the pipeline
+holds one step's activations at a time.  The recompute must see the same
+keypoints: `torch.utils.checkpoint` replays the default generators only,
+never an explicit `torch.Generator`, which is why the draws are made
+before the loop and handed to the steps as tensors; and cuDNN runs such a
+step with deterministic algorithms only, so that the recompute repeats
+the forward bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch.profiler import record_function
 
 from relativepose_tpu_torch import config
@@ -34,6 +45,7 @@ from relativepose_tpu_torch.match.keypoints import (
     KeypointConfig,
     KeypointDraws,
     detect_observed,
+    draw_keypoints,
     rgb_to_gray,
 )
 from relativepose_tpu_torch.match.solver import (
@@ -118,6 +130,20 @@ def make_scnet_fn(net):
     return scnet_fn
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to deterministic algorithms.  A rematerialised
+    step must repeat its forward bit for bit in the backward (the same
+    heatmap picks): on the card, f32 convolutions otherwise differ from
+    one call to the next, enough to move a keypoint."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def _sigma_at(val, i):
     if isinstance(val, (int, float)):
         return float(val)
@@ -135,6 +161,7 @@ def estimate_pose_via_completion(
     draws: Optional[Sequence[Optional[KeypointDraws]]] = None,
     generator: Optional[torch.Generator] = None,
     return_step_poses: bool = False,
+    return_primitives: bool = False,
     device="cuda",
 ):
     """Run the full recurrent algorithm for a batch of pano pairs.
@@ -144,13 +171,13 @@ def estimate_pose_via_completion(
     [0, 1]), 'norm', 'depth', and for ScanNet 'rgb_full' [B, 480, 640,
     3].  hp_table: SolverHyperParams whose sigma fields are floats or
     per-step sequences.  draws: per step, the
-    keypoint draws (`KeypointDraws`) or None to draw from `generator`.
-    Returns T [B, 4, 4]; with `return_step_poses` also [B, steps, 4, 4].
+    keypoint draws (`KeypointDraws`) or None to draw them from
+    `generator` before the first step.  Returns T [B, 4, 4]; with
+    `return_step_poses` also the step poses [B, steps, 4, 4], and with
+    `return_primitives` also, per step, the solver-ready (prim_s, prim_t)
+    dicts of [B, ...] tensors (`match.primitives.extract_primitives`), in
+    that order.
     """
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat matters only for gradients through the pipeline and "
-            "comes with the training slice (ROADMAP queue A6)")
     set_numerics()
     data_s = as_pair_batch(data_s, device)
     data_t = as_pair_batch(data_t, device)
@@ -179,6 +206,11 @@ def estimate_pose_via_completion(
                                 cfg.keypoints, gray_full_s)
         det_t = detect_observed(mask_t * data_t["rgb"] * 255.0,
                                 cfg.keypoints, gray_full_t)
+    # every step's draws before the first step, in the order the steps
+    # would make them: a rematerialised step must not draw again
+    draws = [d if d is not None else draw_keypoints(
+        det_s[1], det_t[1], cfg.keypoints, cfg.mask_method, generator)
+        for d in (draws or [None] * cfg.alter_steps)]
 
     def composite(fv, mask, data):
         nrm = (1.0 - mask) * fv[..., 3:6] + mask * data["norm"]
@@ -188,9 +220,10 @@ def estimate_pose_via_completion(
         rgb = mask * data["rgb"] * 255.0
         return rgb, nrm, depth
 
-    step_ts, scores = [], []
-    # the record_function ranges name the stages in a profiler trace
-    for step in range(cfg.alter_steps):
+    def step_body(T, step):
+        """One recurrence step: (T, step) -> (next T, score, (prim_s,
+        prim_t)).  The record_function ranges name the stages in a
+        profiler trace."""
         with record_function("rp.warp"):
             view_t2s = warp.warp_view(view_t, rotation.inverse_se3(T),
                                       cfg.dataset)
@@ -207,9 +240,7 @@ def estimate_pose_via_completion(
                 rgb_sc, rgb_tc, dep_sc, dep_tc, nrm_sc, nrm_tc,
                 f0[..., f_lo:f_hi], f1[..., f_lo:f_hi], cfg.keypoints,
                 cfg.dataset, cfg.mask_method, do_completion=cfg.completion,
-                det_s=det_s, det_t=det_t,
-                draws=draws[step] if draws is not None else None,
-                generator=generator)
+                det_s=det_s, det_t=det_t, draws=draws[step])
 
         hp_step = SolverHyperParams(
             sigma_angle1=_sigma_at(hp_table.sigma_angle1, step),
@@ -234,8 +265,24 @@ def estimate_pose_via_completion(
                     iters=cfg.icp_iters, dof=cfg.icp_dof,
                     obs_s=mask_s[..., 0], obs_t=mask_t[..., 0])
                 T = torch.where(is_id[:, None, None], T, T_p)
+        return T, score, (prim_s, prim_t)
+
+    step_fn = step_body
+    if cfg.remat and torch.is_grad_enabled():
+        def remat_body(T, step):
+            with cudnn_deterministic():
+                return step_body(T, step)
+
+        def step_fn(T, step):
+            return torch.utils.checkpoint.checkpoint(
+                remat_body, T, step, use_reentrant=False)
+
+    step_ts, scores, prims = [], [], []
+    for step in range(cfg.alter_steps):
+        T, score, prim = step_fn(T, step)
         step_ts.append(T)
         scores.append(score)
+        prims.append(prim)
 
     step_ts = torch.stack(step_ts, dim=1)
     if cfg.step_select == "best_score":
@@ -248,9 +295,12 @@ def estimate_pose_via_completion(
     elif cfg.step_select != "last":
         raise ValueError(f"unknown step_select {cfg.step_select!r}")
 
+    out = (T,)
     if return_step_poses:
-        return T, step_ts
-    return T
+        out += (step_ts,)
+    if return_primitives:
+        out += (prims,)
+    return out if len(out) > 1 else T
 
 
 def batched_pose_estimator(scnet_fn, cfg: PipelineConfig, device="cuda"):

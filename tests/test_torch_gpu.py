@@ -21,6 +21,7 @@ moves a parameter by lr * sign(gradient), which flips where a gradient
 is near 0).
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -331,3 +332,107 @@ def test_training_step_on_card_matches_cpu(cuda, trainer):
     assert float(d.max()) <= 4e-4
     assert float((d <= 1e-6).float().mean()) >= 0.999
 
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """The CUDA kernels have no backward: a call whose inputs (or tensor
+    sigmas) require grad while grad mode is on raises, and launches
+    nothing; under no_grad the same call launches."""
+    args = components(0, 2, 64, cuda)
+    ps = args[0].clone().requires_grad_(True)
+    sig = torch.tensor(0.04, device=cuda, requires_grad=True)
+    n0 = kernels.PAIR_WEIGHT.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.pair_weight_matrix(ps, *args[1:], SolverHyperParams())
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.pair_weight_matrix(*args, SolverHyperParams(sigma_dist=sig))
+    W, _ = kernels.pair_weight_matrix(*args, SolverHyperParams())
+    h = torch.ones(2, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.power_iteration(W, h, 3)
+    assert kernels.PAIR_WEIGHT.launches == n0 + 1
+    with torch.no_grad():
+        kernels.pair_weight_matrix(ps, *args[1:],
+                                   SolverHyperParams(sigma_dist=sig))
+        kernels.power_iteration(W, h, 3)
+    assert kernels.PAIR_WEIGHT.launches == n0 + 2
+
+
+def test_sigma_objective_with_kernel_matches_plain(cuda):
+    """The sigma tuner's objective with the pair-weight kernel (the 'fd'
+    path) against the plain W build, at sigma0 and a perturbed sigma, on
+    primitives the oracle pipeline caches on the card: to 1e-4
+    relative."""
+    from relativepose_tpu_torch.tune import sigma as st
+    ds, dt, T_gt = stacked_pairs((27, 28, 29), "suncg")
+    cfg = recurrent.PipelineConfig(
+        alter_steps=STEPS, keypoints=KeypointConfig(**SMALL),
+        solver=SolverStaticConfig(power_iters=5))
+    by_level, rgt = st.cache_primitives(
+        lambda a, b, p: make_oracle_completion_fn(a, b, cfg.layout),
+        [(ds, dt, T_gt)], SolverHyperParams(), cfg,
+        generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    prims = st.stack_primitives(by_level[0], cuda)
+    n0 = kernels.PAIR_WEIGHT.launches
+    for sig in ([0.2615, 0.2615, 0.04, 0.01], [0.3, 0.2, 0.05, 0.02]):
+        vals = [float(st.make_objective(*prims, rgt, SolverStaticConfig(
+            pallas_w_build=k))(np.asarray(sig, np.float32)))
+            for k in (True, False)]
+        np.testing.assert_allclose(vals[0], vals[1], rtol=1e-4)
+    assert kernels.PAIR_WEIGHT.launches == n0 + 2
+
+
+def test_finetune_remat_on_card_matches_no_remat(cuda):
+    """One fine-tuning loss and its gradients on the card (f32 SCNet), with
+    and without remat, on the same draws: the loss equal, the gradients to
+    a cosine of 1 - 1e-4 and norms within 1e-3 (cuDNN's backward may sum
+    in another order on each run).  f32 convolutions on the card differ
+    from one call to the next unless cuDNN is held to deterministic
+    algorithms, enough to move a keypoint and the loss by 5 %: the
+    rematerialised steps hold it themselves, and the plain run is held
+    here."""
+    from relativepose_tpu_torch.models.scnet import SCNet
+    from relativepose_tpu_torch.train import finetune_pose as ft
+    ds, dt, T_gt = stacked_pairs((30, 31), "suncg")
+    torch.manual_seed(0)
+    net = SCNet(ngf=8).to(cuda)
+    cfg_ft = ft.PoseFinetuneConfig(ngf=8)
+    out = {}
+    assert not torch.backends.cudnn.deterministic
+    for remat in (True, False):
+        cfg = recurrent.PipelineConfig(
+            alter_steps=STEPS, keypoints=KeypointConfig(**SMALL), remat=remat,
+            solver=SolverStaticConfig(power_iters=5, pallas_w_build=False))
+        with (contextlib.nullcontext() if remat
+              else recurrent.cudnn_deterministic()):
+            loss, _ = ft.loss_fn(
+                net, None, recurrent.as_pair_batch(ds, cuda),
+                recurrent.as_pair_batch(dt, cuda),
+                torch.as_tensor(T_gt, device=cuda), cfg,
+                SolverHyperParams(), cfg_ft,
+                draws=numpy_draws(3, 2, cfg.keypoints, cuda))
+            g = torch.autograd.grad(loss, list(net.parameters()),
+                                    allow_unused=True)
+        out[remat] = (float(loss), torch.cat([x.flatten() for x in g
+                                              if x is not None]))
+    assert out[True][0] == out[False][0]
+    a, b = out[True][1], out[False][1]
+    assert bool(torch.isfinite(a).all()) and float(a.norm()) > 0
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    assert cos >= 1 - 1e-4, cos
+    np.testing.assert_allclose(float(a.norm()), float(b.norm()), rtol=1e-3)
+
+
+def test_gather_eval_pairs_on_card_matches_cpu(cuda):
+    from relativepose_tpu_torch.train import finetune_pose as ft
+    src = dsets.SyntheticPairs("scannet", n=3, seed=12)
+    idx = torch.tensor([2, 0])
+    cpu = ft.gather_eval_pairs(dstore.DeviceStore(src, device="cpu").arrays,
+                               idx)
+    card = ft.gather_eval_pairs(dstore.DeviceStore(src, device=cuda).arrays,
+                                idx.to(cuda))
+    for a, b in zip(cpu[:2], card[:2]):
+        assert set(a) == set(b) == {"rgb", "norm", "depth", "rgb_full"}
+        for k in a:
+            assert torch.equal(b[k].cpu(), a[k]), k
+    torch.testing.assert_close(card[2].cpu(), cpu[2], rtol=0, atol=1e-6)

@@ -96,7 +96,7 @@ def test_augment_with_feature_matches(rng):
         jnp.asarray(desc), jnp.asarray(valid), jnp.asarray(feat), key, 6)
     sel = np.asarray(jax_choice(key, jnp.asarray(valid), 6))[None]
     pt_, vt = tkp.augment_with_feature_matches(
-        t(desc)[None], t(valid)[None], t(feat)[None], 6, sel=t(sel))
+        t(desc)[None], t(valid)[None], t(feat)[None], t(sel))
     np.testing.assert_array_equal(np.asarray(pj), pt_[0].numpy())
     np.testing.assert_array_equal(np.asarray(vj), vt[0].numpy())
 
@@ -107,8 +107,7 @@ def test_random_unobserved_points_from_jax_uniforms():
     kx, ky = jax.random.split(key)
     u = np.stack([np.asarray(jax.random.uniform(kx, (30,))),
                   np.asarray(jax.random.uniform(ky, (30,)))])[None]
-    pt_, vt = tkp.random_unobserved_points(30, "second", 1, u=t(u),
-                                           device="cpu")
+    pt_, vt = tkp.random_unobserved_points(t(u), "second")
     np.testing.assert_array_equal(np.asarray(pj), pt_[0].numpy())
     np.testing.assert_array_equal(np.asarray(vj), vt[0].numpy())
 
@@ -150,9 +149,16 @@ def test_keypoint_sets_drawn_from_generator(rng):
     outs = [tkp.build_keypoint_sets(
         *args, cfg, generator=torch.Generator().manual_seed(5))
         for _ in range(2)]
-    for a, b in zip(*outs):
+    # the generator's draws are those of `draw_keypoints`, the one place
+    # that knows their order
+    det = [tkp.detect_observed(a, cfg) for a in args[:2]]
+    draws = tkp.draw_keypoints(det[0][1], det[1][1], cfg,
+                               generator=torch.Generator().manual_seed(5))
+    outs.append(tkp.build_keypoint_sets(*args, cfg, draws=draws))
+    for a, b, c in zip(*outs):
         assert a.shape[:2] == (2, cfg.capacity)
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
 def test_extract_primitives_with_jax_draws(rng):

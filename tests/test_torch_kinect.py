@@ -120,8 +120,7 @@ def test_kinect_observed_region_and_random_points(rng):
     kx, ky = jax.random.split(key)
     u = np.stack([np.asarray(jax.random.uniform(kx, (30,))),
                   np.asarray(jax.random.uniform(ky, (30,)))])[None]
-    pt_, vt = tkp.random_unobserved_points(30, "kinect", 1, u=t(u),
-                                           device="cpu")
+    pt_, vt = tkp.random_unobserved_points(t(u), "kinect")
     np.testing.assert_array_equal(np.asarray(pj), pt_[0].numpy())
     np.testing.assert_array_equal(np.asarray(vj), vt[0].numpy())
     assert tkp.N_RANDOM_KINECT == jkp.N_RANDOM_KINECT == 120

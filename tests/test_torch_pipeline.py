@@ -31,6 +31,7 @@ from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.models.scnet import SCNet
 from relativepose_tpu_torch.pipeline import recurrent as trec
 from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
+from torch_parity import one_torch_thread  # noqa: F401
 from torch_parity import (
     SMALL,
     STEPS,
@@ -186,15 +187,33 @@ def test_best_score_matches_jax():
     np.testing.assert_array_equal(Tg[1 - low], T.numpy()[1 - low])
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("kw", [dict(remat=True),
                                 dict(remat=True, dataset="scannet",
                                      mask_method="kinect"),
                                 dict(remat=True, icp_iters=2)])
 def test_options_not_ported_raise(kw):
-    """remat (gradients through the pipeline) comes with the training
-    slice; whatever the other options, it raises."""
-    ds, dt, _ = pairs([24])
+    """remat, which raised until the training slice, now runs with every
+    option: under grad mode the rematerialised steps give the poses of the
+    plain run bit for bit, and the same gradient (here in a scalar that
+    scales the oracle completion)."""
+    ds, dt, _ = pairs([24], kw.get("dataset", "suncg"))
     _, tcfg = configs(**kw)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        trec.estimate_pose_via_completion(
-            lambda x: x, ds, dt, SolverHyperParams(), tcfg, device="cpu")
+    _, tcfg0 = configs(**{**kw, "remat": False})
+    oracle = make_oracle_completion_fn(trec.as_pair_batch(ds, "cpu"),
+                                       trec.as_pair_batch(dt, "cpu"),
+                                       tcfg.layout)
+
+    def run(cfg):
+        a = torch.ones((), requires_grad=True)
+        _, steps = trec.estimate_pose_via_completion(
+            lambda x: oracle(x) * a, ds, dt, SolverHyperParams(), cfg,
+            generator=torch.Generator().manual_seed(0),
+            return_step_poses=True, device="cpu")
+        (g,) = torch.autograd.grad(steps.square().sum(), a)
+        return steps.detach(), g
+
+    steps1, g1 = run(tcfg)
+    steps0, g0 = run(tcfg0)
+    torch.testing.assert_close(steps1, steps0, rtol=0, atol=0)
+    torch.testing.assert_close(g1, g0, rtol=0, atol=0, equal_nan=True)

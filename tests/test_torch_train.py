@@ -259,3 +259,34 @@ def test_completion_adam_steps_match_jax(batches):
         assert_metrics(mt, mj, METRIC_RTOL if i == 0 else SECOND_RTOL)
     assert_params(state_t.params_tree(),
                   jax.tree.map(np.asarray, state_j["params"]), 1e-4, 0.99)
+
+
+@pytest.mark.parametrize("betas", [(0.5, 0.999), (0.9, 0.999)],
+                         ids=["b1_0.5", "b1_0.9"])
+def test_optax_adam_matches_optax(betas):
+    """`OptaxAdam` (pose fine-tuning, sigma tuning) against optax.adam:
+    three steps, one of them on zero gradients, parameters to 1e-9
+    (updates of order lr = 2e-4)."""
+    import optax
+    from relativepose_tpu_torch.train.state import OptaxAdam
+    r = np.random.RandomState(2)
+    shapes = [(5, 3), (4,), (2, 3, 2)]
+    p0 = [(1e-3 * r.randn(*s)).astype(np.float32) for s in shapes]
+    grads = [[(r.randn(*s) * 10.0 ** r.randint(-3, 2)).astype(np.float32)
+              for s in shapes] for _ in range(3)]
+    grads[1] = [np.zeros(s, np.float32) for s in shapes]
+    tx = optax.adam(2e-4, b1=betas[0], b2=betas[1])
+    pj = [jnp.asarray(p) for p in p0]
+    state = tx.init(pj)
+    pt = [torch.from_numpy(p.copy()).requires_grad_(True) for p in p0]
+    opt = OptaxAdam(pt, 2e-4, betas)
+    for g in grads:
+        updates, state = tx.update([jnp.asarray(x) for x in g], state, pj)
+        pj = optax.apply_updates(pj, updates)
+        for p, x in zip(pt, g):
+            p.grad = torch.from_numpy(x)
+        opt.step()
+        for a, b in zip(pt, pj):
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                       rtol=0, atol=1e-9)
+    assert all(float(opt.state[p]["step"]) == 3.0 for p in pt)

@@ -5,6 +5,7 @@ random draws are handed to the port."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from relativepose_tpu.match import keypoints as jkp
@@ -23,6 +24,18 @@ from relativepose_tpu_torch.match.solver import (
 )
 from relativepose_tpu_torch.pipeline import recurrent as trec
 from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch on one CPU thread during the test.  The tier-1 run puts 6
+    test workers on the machine's cores, and torch's thread pool in each
+    oversubscribes them: the pipeline's small ops then ran 20x slower
+    than alone (one thread costs them 1.4x alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def stack_pairs(dicts):
@@ -129,15 +142,21 @@ def run_jax(ds, dt, keys, jcfg, scnet_fn_of, hp=None):
             return_step_poses=True)
         finals.append(np.asarray(T))
         steps.append(np.asarray(st))
-        for d, out in ((dj, det_s), (dtj, det_t)):
-            _, mask = jrec.make_view(d["rgb"], d["norm"], d["depth"],
-                                     jcfg.mask_method)
-            gray = None if "rgb_full" not in d else \
-                rgb_to_gray(d["rgb_full"] * 255.0)
-            out.append(np.asarray(detect_observed(
-                mask * d["rgb"] * 255.0, jcfg.keypoints, gray)[1]))
+        det_s.append(jax_detection_mask(dj, jcfg))
+        det_t.append(jax_detection_mask(dtj, jcfg))
     return (np.stack(finals), np.stack(steps), np.stack(det_s),
             np.stack(det_t))
+
+
+def jax_detection_mask(d, jcfg):
+    """The valid mask of the JAX pipeline's detections of one view (a dict
+    of JAX arrays of one pair), as numpy."""
+    _, mask = jrec.make_view(d["rgb"], d["norm"], d["depth"],
+                             jcfg.mask_method)
+    gray = None if "rgb_full" not in d else \
+        rgb_to_gray(d["rgb_full"] * 255.0)
+    return np.asarray(detect_observed(mask * d["rgb"] * 255.0,
+                                      jcfg.keypoints, gray)[1])
 
 
 def run_oracle_both(ds, dt, key_seed, jcfg, tcfg, hp_j=None, hp_t=None):
