@@ -49,7 +49,7 @@ Phases, each ending with one line that gives its own seconds:
      steps on one fixed batch must leave the loss below its first value;
   6b. both training CLIs in this process at their defaults (full width,
      batch 8, bf16): `cli.train_feature` on the synthetic debug set for
-     10 s, then `cli.train_completion --featurelearning 1 --feat_ckpt`
+     6 s, then `cli.train_completion --featurelearning 1 --feat_ckpt`
      the npz checkpoint the feature run just saved; each must write its
      npz checkpoint and log only finite losses;
   6c. pose fine-tuning through the pipeline at the fine-tuning CLI's
@@ -72,13 +72,29 @@ Phases, each ending with one line that gives its own seconds:
      objective with K1 within 1e-4 of the plain W build at two sigmas;
      seconds per objective evaluation (K1) and per value-and-gradient step
      (plain W);
+  7a. the classical baselines: `cli.evaluate.main` with gs, fgs, cgs and
+     super4pcs (RPTPU_S4PCS_BUDGET set to 3 s here; the default is 240) on
+     4 synthetic suncg pairs, of which 2 pass the 0.1 overlap skip: finite
+     orthonormal poses, host seconds per recorded pair, the median
+     rotation error, the native library's g++ build time;
+  7b. original-repository checkpoints: a seeded full-width SCNet written
+     as a `.pth.tar` (reference names, `module.` prefixes, under
+     `state_dict`; the inverse map lives in this script) must import back
+     within 1e-6 and drive `cli.evaluate --torch_comp_ckpt` (bf16, K1
+     counted) to finite orthonormal poses; a seeded feature net written
+     the same way drives `cli.train_completion --torch_feat_ckpt` for 2 s
+     to its npz;
+  7c. one full-width completion step (ngf 64, batch 8, bf16) through
+     `train/mesh.py` on a 1-rank NCCL group against the same step without
+     a group (one card cannot show a collective across cards; the CPU
+     tests with gloo hold 2 and 2 x 2 ranks to the 1-rank step);
   5f. last, one call of 5b's and one of 5c's first run (K1) and one
      completion step of 6a under torch.profiler (time per stage, the
      device's idle share, the costliest kernels).
 
 Every pipeline phase sets the launch counts to 0 just before it drives the
 pipeline and reads them just after; a kernel's `launches` in the JSON line
-is the sum over phases 5b-5e, 6c's evaluation call and 6d (the
+is the sum over phases 5b-5e, 6c's evaluation call, 6d and 7b (the
 comparisons of a kernel with its plain version are not counted).  The
 training phases 6a and 6b and 6c's fine-tuning steps reach neither
 kernel; their counts are printed.
@@ -789,7 +805,7 @@ def phase_train_clis(card, work):
     # the completion run reads the pairs the feature run rendered
     os.environ["RPTPU_SYNTH_CACHE"] = os.path.join(work, "pairs")
     common = ["--dataList", "synthetic", "--debug", "--max_epoch", "1",
-              "--train_duration", "10", "--batch_size", str(TRAIN_B), "--rm",
+              "--train_duration", "6", "--batch_size", str(TRAIN_B), "--rm",
               "--device", "cuda"]
     try:
         os.chdir(work)
@@ -1065,6 +1081,271 @@ def phase_tune_sigma(card, ckpt, work, launches):
           f"{k1} times in 6d's two runs; on {card}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the classical baselines, original-repository checkpoints, the mesh
+# ---------------------------------------------------------------------------
+
+CLASSICAL_PAIRS = 4      # synthetic suncg pairs; 2 pass the 0.1 overlap skip
+S4PCS_BUDGET_S = 3       # RPTPU_S4PCS_BUDGET for 7a (the default is 240 s)
+
+
+def check_pose_rows(name, rows):
+    import numpy as np
+    if len(rows) < 2:
+        raise AssertionError(f"{name}: {len(rows)} recorded rows")
+    for r in rows:
+        T = np.asarray(r["T_hat"], np.float64)
+        R = T[:3, :3]
+        if not np.isfinite(T).all() or \
+                np.abs(R @ R.T - np.eye(3)).max() > 1e-3:
+            raise AssertionError(f"{name}: pose {T.tolist()}")
+
+
+def phase_classical(card):
+    """7a: `cli.evaluate.main` with gs, fgs, cgs and super4pcs on synthetic
+    suncg pairs (observed-face clouds of the 160x640 panos), the
+    bookkeeping on the card and the registration in the native library,
+    which the first call builds with g++."""
+    import numpy as np
+    from relativepose_tpu_torch.cli import evaluate
+    from relativepose_tpu_torch.native import registration as natreg
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_classical_")
+    cwd = os.getcwd()
+    saved = {k: os.environ.get(k)
+             for k in ("RPTPU_S4PCS_BUDGET", "RPTPU_SYNTH_CACHE")}
+    # super4pcs's search is cut to a few seconds a pair here, and the four
+    # methods read the pairs the first one rendered
+    os.environ["RPTPU_S4PCS_BUDGET"] = str(S4PCS_BUDGET_S)
+    os.environ["RPTPU_SYNTH_CACHE"] = os.path.join(tmp, "pairs")
+    try:
+        os.chdir(tmp)
+        for method in ("gs", "fgs", "cgs", "super4pcs"):
+            t = time.perf_counter()
+            runner = evaluate.main([
+                "--dataList", "synthetic", "--synthetic_family", "suncg",
+                "--method", method, "--maxIter", str(CLASSICAL_PAIRS),
+                "--rm", "--exp", method, "--device", "cuda"])
+            secs = time.perf_counter() - t
+            rows = runner.error_stats
+            check_pose_rows(method, rows)
+            med = float(np.median([float(r["err_ad"]) for r in rows]))
+            print(f"classical {method}: {len(rows)} of {CLASSICAL_PAIRS} "
+                  f"pairs recorded (pair_idx "
+                  f"{[int(r['pair_idx']) for r in rows]}); "
+                  f"{secs / len(rows):.2f} host s per recorded pair "
+                  f"({secs:.1f} s in all); median rotation error "
+                  f"{med:.3f} deg; on {card}", flush=True)
+        print(f"native library: built with g++ in "
+              f"{natreg.build_seconds:.1f} s on {card}"
+              if natreg.build_seconds else "native library: cached build",
+              flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def reference_scnet_state_dict(net):
+    """The port's SCNet -> the original repository's state dict: names by
+    `torch_import.scnet_name_map`, torch layouts, BN weight = scale + 1
+    (the import map run backwards)."""
+    import numpy as np
+    import torch
+    from relativepose_tpu_torch.models import convert
+    from relativepose_tpu_torch.utils.torch_import import scnet_name_map
+    tree = convert.flax_params(net)
+    sd = {}
+    for tname, (fname, kind) in scnet_name_map(
+            net.layout.output_type).items():
+        node = tree[fname]
+        if kind == "plain_conv":
+            sd[f"{tname}.weight"] = node["kernel"].transpose(3, 2, 0, 1)
+            sd[f"{tname}.bias"] = node["bias"]
+            continue
+        if kind == "deconv_block":
+            w = node["kernel"].transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        else:
+            w = node["Conv_0"]["kernel"].transpose(3, 2, 0, 1)
+        sd[f"{tname}.0.weight"] = w
+        sd[f"{tname}.1.weight"] = node["BatchNorm2d_0"]["scale"] + 1.0
+        sd[f"{tname}.1.bias"] = node["BatchNorm2d_0"]["bias"]
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def reference_resnet_state_dict(net):
+    """The port's Resnet18_8s -> the original feature net's state dict,
+    with running statistics 0 and 1."""
+    sd = {}
+    t = "resnet18_32s"
+
+    def bn(name, mod):
+        sd[f"{name}.weight"] = mod.weight.detach()
+        sd[f"{name}.bias"] = mod.bias.detach()
+        sd[f"{name}.running_mean"] = 0.0 * mod.bias.detach()
+        sd[f"{name}.running_var"] = 0.0 * mod.bias.detach() + 1.0
+
+    sd[f"{t}.conv1.weight"] = net.conv1.weight.detach()
+    bn(f"{t}.bn1", net.bn1)
+    for i, blk in enumerate(net.blocks):
+        tb = f"{t}.layer{i // 2 + 1}.{i % 2}"
+        sd[f"{tb}.conv1.weight"] = blk.conv1.weight.detach()
+        bn(f"{tb}.bn1", blk.bn1)
+        sd[f"{tb}.conv2.weight"] = blk.conv2.weight.detach()
+        bn(f"{tb}.bn2", blk.bn2)
+        if blk.down_conv is not None:
+            sd[f"{tb}.downsample.0.weight"] = blk.down_conv.weight.detach()
+            bn(f"{tb}.downsample.1", blk.down_bn)
+    for n in (8, 16, 32):
+        conv = getattr(net, f"score{n}")
+        sd[f"score_{n}s.weight"] = conv.weight.detach()
+        sd[f"score_{n}s.bias"] = conv.bias.detach()
+    return {k: v.float().cpu().contiguous() for k, v in sd.items()}
+
+
+def save_reference(sd, path):
+    """A `.pth.tar` as the original repository's DataParallel runs save
+    it: `module.` prefixes under `state_dict`."""
+    import torch
+    torch.save({"epoch": 1, "state_dict": {f"module.{k}": v
+                                           for k, v in sd.items()}}, path)
+    return path
+
+
+def phase_torch_checkpoint(card, work, launches):
+    """7b: original-repository checkpoints of a seeded full-width SCNet
+    and feature net: the import gives back every SCNet parameter, the
+    evaluation CLI runs on the SCNet checkpoint and the completion CLI
+    trains against the feature net's."""
+    import numpy as np
+    import torch
+    from relativepose_tpu_torch.cli import evaluate, train_completion
+    from relativepose_tpu_torch.models.resnet import Resnet18_8s
+    from relativepose_tpu_torch.models.scnet import SCNet
+    from relativepose_tpu_torch.ops import kernels
+    from relativepose_tpu_torch.utils import torch_import
+    torch.manual_seed(5)
+    net = SCNet()
+    comp = save_reference(reference_scnet_state_dict(net),
+                          os.path.join(work, "suncg.comp.pth.tar"))
+    back = torch_import.load_scnet(torch_import.load_torch_state_dict(comp),
+                                   SCNet())
+    ref = net.state_dict()
+    err = max(float((v - ref[k]).abs().max())
+              for k, v in back.state_dict().items())
+    print(f"torch checkpoint: {len(ref)} SCNet parameters back from the "
+          f"reference names within {err:.3g} (bound 1e-6) on {card}",
+          flush=True)
+    if not err <= 1e-6:
+        raise AssertionError(f"SCNet import round trip {err}")
+    cwd = os.getcwd()
+    cache = os.environ.get("RPTPU_SYNTH_CACHE")
+    os.environ["RPTPU_SYNTH_CACHE"] = os.path.join(work, "pairs")
+    try:
+        os.chdir(work)
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        runner = evaluate.main([
+            "--dataList", "synthetic", "--synthetic_family", "suncg",
+            "--method", "ours", "--maxIter", "4", "--batch_pairs", "4",
+            "--torch_comp_ckpt", comp, "--rm", "--exp", "torch_ck",
+            "--device", "cuda"])
+        counts = read_counts()
+        add_counts(launches, counts)
+        check_pose_rows("evaluate --torch_comp_ckpt", runner.error_stats)
+        print(f"evaluate --torch_comp_ckpt (full width, bf16): "
+              f"{len(runner.error_stats)} pairs in "
+              f"{time.perf_counter() - t:.1f} s, finite orthonormal poses; "
+              f"launches {counts}; on {card}", flush=True)
+        torch.manual_seed(6)
+        feat = save_reference(reference_resnet_state_dict(Resnet18_8s()),
+                              os.path.join(work, "suncg.feat.pth.tar"))
+        t = time.perf_counter()
+        ckpt = train_completion.main([
+            "--exp", "comp_tf", "--featurelearning", "1", "--torch_feat_ckpt",
+            feat, "--dataList", "synthetic", "--debug", "--max_epoch", "1",
+            "--train_duration", "2", "--batch_size", str(TRAIN_B),
+            "--device_data", "0", "--log_every", "1", "--rm", "--device",
+            "cuda"])
+        print(f"train_completion --torch_feat_ckpt: "
+              f"{time.perf_counter() - t:.1f} s on {card}", flush=True)
+        check_cli_run("train_completion --torch_feat_ckpt", ckpt,
+                      "ConvBlock_0")
+        n = len(np.load(os.path.join(work, ckpt)).files)
+        print(f"train_completion --torch_feat_ckpt: {n} arrays in its npz",
+              flush=True)
+    finally:
+        os.chdir(cwd)
+        if cache is None:
+            os.environ.pop("RPTPU_SYNTH_CACHE", None)
+        else:
+            os.environ["RPTPU_SYNTH_CACHE"] = cache
+
+
+def phase_mesh(card):
+    """7c: one completion step at full width (ngf 64, batch 8, bf16)
+    through train/mesh.py on a 1-rank NCCL group, against the same step
+    without a group: loss within 1e-3 relative, parameters within 1e-6
+    for 99.9 % of them and within 2 lr + 1e-6 for all (the group's batch
+    statistics divide sums where the plain path takes means)."""
+    import torch
+    import torch.distributed as dist
+    from relativepose_tpu_torch.data import datasets as dsets
+    from relativepose_tpu_torch.data import device_store as dstore
+    from relativepose_tpu_torch.train import completion, mesh
+    store = dstore.DeviceStore(
+        dsets.SyntheticPairs("suncg", n=TRAIN_B, seed=0, full_frames=False),
+        device="cuda", with_full_frames=False)
+    cfg = completion.CompletionTrainConfig(dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = dstore.gather_batch(store.arrays,
+                                torch.arange(TRAIN_B, device="cuda"),
+                                "suncg", generator=gen)
+    draws = completion.draw(cfg, batch, gen)
+    runs = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        for name in ("plain", "mesh"):
+            state = completion.init_state(cfg, "cuda", seed=0)
+            if name == "mesh":
+                mesh.init_distributed(0, 1, os.path.join(tmp, "store"),
+                                      "cuda")
+                m = mesh.make_mesh(1, 1)
+                mesh.shard_train_state(state, m, tensor_parallel=False)
+            t = time.perf_counter()
+            metrics = completion.train_step(state, batch, draws, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            runs[name] = (float(metrics["loss"]),
+                          [p.detach().clone() for p in state.parameters()],
+                          secs, type(state.module("net_g")).__name__)
+            del state
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    (l0, p0, s0, w0), (l1, p1, s1, w1) = runs["plain"], runs["mesh"]
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(p0, p1)])
+    frac = float((diff <= 1e-6).float().mean())
+    worst = float(diff.max())
+    print(f"mesh step (1-rank NCCL group, {w1}; the collectives run but a "
+          f"1-card machine cannot show one across cards, the CPU tests "
+          f"with gloo hold 2 and 2 x 2 ranks to the 1-rank step): loss "
+          f"{l1:.6f} against {l0:.6f} without the group ({w0}); "
+          f"parameters within 1e-6: {frac:.6f}, max |diff| {worst:.3g}; "
+          f"step {s1 * 1e3:.1f} ms against {s0 * 1e3:.1f} ms (one cold "
+          f"step each); on {card}", flush=True)
+    lr = cfg.learning_rate
+    if not (abs(l1 - l0) <= 1e-3 * abs(l0) and frac >= 0.999
+            and worst <= 2 * lr + 1e-6):
+        raise AssertionError(f"mesh step: loss {l1} vs {l0}, within 1e-6 "
+                             f"{frac}, max {worst}")
+
+
 def profile_call(call, wall_s):
     """One pipeline call under torch.profiler: host time of each stage
     range (rp.*) and the device time of the kernels launched inside it,
@@ -1156,6 +1437,10 @@ def main():
                          data, work, launches)
         ph.run("6d sigma tuning", phase_tune_sigma, card, ft_ckpt, work,
                launches)
+        ph.run("7a classical baselines", phase_classical, card)
+        ph.run("7b torch checkpoints", phase_torch_checkpoint, card, work,
+               launches)
+        ph.run("7c mesh", phase_mesh, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # last: the profiler can leave the host slower for later calls

@@ -1,10 +1,12 @@
 """Shared CLI plumbing: the training argument surface and dataset
 resolution of `relativepose_tpu/cli/common.py`, with `--device` (default
-cuda), and `parse_internal_size` for the evaluation driver."""
+cuda), `parse_internal_size` for the evaluation CLI, and `run_ranks`,
+which runs a training CLI on `--num_devices` ranks."""
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from relativepose_tpu_torch import config
 
@@ -75,8 +77,12 @@ def add_common_training_args(p: argparse.ArgumentParser):
     p.add_argument("--debug", action="store_true")
     p.add_argument("--bf16", type=int, default=1,
                    help="bfloat16 compute for the conv nets")
-    p.add_argument("--num_devices", type=int, default=None)
-    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="ranks, one card each (default 1): a data x "
+                        "model mesh (train/mesh.py)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="model-axis size: wide conv kernels split over "
+                        "this many ranks")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (cuda, or cpu for tests)")
     p.add_argument("--internal_size", type=str, default="224x224",
@@ -125,9 +131,53 @@ def resolve_device(args):
     return device
 
 
-def check_single_device(args):
-    """Data- and model-parallel training are not ported yet."""
-    if (args.num_devices or 1) > 1 or args.model_parallel > 1:
-        raise NotImplementedError(
-            "--num_devices / --model_parallel > 1: multi-card training "
-            "(torch DDP) is ROADMAP queue A7")
+def run_ranks(args, rank_fn):
+    """Run rank_fn(args, dirs) -> checkpoint path on `--num_devices`
+    ranks (1 by default): the experiment directory is made once, here;
+    with more than one rank each is a process of its own, joined over
+    NCCL (cuda) or gloo (cpu) through a FileStore in that directory, and
+    the newest checkpoint's path is returned after all have ended."""
+    import torch
+
+    from relativepose_tpu_torch.train import mesh
+    from relativepose_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        require_npz,
+    )
+    from relativepose_tpu_torch.utils.experiment import ExperimentDirs
+
+    world = args.num_devices or 1
+    if world % args.model_parallel:
+        raise ValueError(f"--num_devices {world} is not a multiple of "
+                         f"--model_parallel {args.model_parallel}")
+    data = world // args.model_parallel
+    if args.batch_size % data:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"over {data} data-parallel ranks")
+    if getattr(args, "feat_ckpt", None):
+        require_npz(args.feat_ckpt)   # before any rank starts
+    dirs = ExperimentDirs(args.exp, rm=args.rm, resume=args.resume)
+    if world == 1:
+        return rank_fn(args, dirs)
+    if torch.device(args.device).type == "cuda" and \
+            torch.cuda.device_count() < world:
+        raise RuntimeError(f"--num_devices {world}, but torch sees "
+                           f"{torch.cuda.device_count()} CUDA devices")
+    store = os.path.join(os.path.abspath(dirs.exp_dir), "rendezvous")
+    if os.path.exists(store):
+        os.remove(store)
+    mesh.spawn(_rank_main, world, (world, rank_fn, args, dirs, store))
+    ckpt = CheckpointManager(dirs.params_dir)
+    return ckpt.path(ckpt.all_steps()[-1])
+
+
+def _rank_main(rank, world, rank_fn, args, dirs, store):
+    import torch
+    import torch.distributed as dist
+
+    from relativepose_tpu_torch.train import mesh
+    mesh.init_distributed(rank, world, store, torch.device(args.device).type)
+    try:
+        rank_fn(args, dirs)
+    finally:
+        dist.destroy_process_group()

@@ -10,9 +10,15 @@ package's `data/pretrained/suncg.comp_ft.npz`):
     python -m relativepose_tpu_torch.cli.evaluate --dataList synthetic \
         --method ours --comp_ckpt suncg.comp_ft.npz
 
-`--device cpu` runs everything on the CPU.  Not ported yet: orbax
-checkpoint directories and `--torch_comp_ckpt` (ROADMAP queue A7), and
-the classical methods super4pcs / fgs / gs / cgs (queue A5).
+With the original repository's SCNet checkpoint (a `.pth.tar` state
+dict, `utils/torch_import.py`):
+    python -m relativepose_tpu_torch.cli.evaluate --dataList synthetic \
+        --method ours --torch_comp_ckpt suncg.comp.pth.tar
+
+The classical methods (`--method super4pcs | gs | fgs | cgs`) register
+each pair in the native library (`eval/baselines.py`).  `--device cpu`
+runs everything on the CPU.  Orbax checkpoint directories are not read
+(`utils/checkpoint.py::restore_params` says why).
 """
 
 from __future__ import annotations
@@ -60,8 +66,9 @@ def _parse_args(argv=None):
     p.add_argument("--comp_ckpt", type=str, default=None,
                    help="completion weights: an npz weight file")
     p.add_argument("--torch_comp_ckpt", type=str, default=None,
-                   help="original-repository SCNet state dict (not ported "
-                        "yet, ROADMAP queue A7)")
+                   help="the original repository's SCNet state dict "
+                        "(.pth.tar), converted on load "
+                        "(utils/torch_import.py)")
     p.add_argument("--eval_seed", type=int, default=20_000,
                    help="synthetic eval scene seed (train=0, val=10000 "
                         "are the training scripts' seeds)")
@@ -115,7 +122,10 @@ def _parse_args(argv=None):
     p.add_argument("--saveCompletion", type=int, default=1,
                    help="accepted for parity (unused)")
     p.add_argument("--force_cpu", type=int, default=1,
-                   help="accepted for parity (classical methods only)")
+                   help="accepted for parity, no effect: the JAX package "
+                        "uses it to keep the classical methods' bookkeeping "
+                        "off the TPU; here that bookkeeping runs on "
+                        "--device")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the pipeline")
     p.add_argument("--debug", action="store_true")
@@ -136,24 +146,18 @@ def _parse_args(argv=None):
 
 def scnet_fn_factory_from_checkpoint(args, layout: ChannelLayout):
     """The completion net of the eval pipeline: SCNet with the weights of
-    an npz file (`--comp_ckpt`), or the ground-truth oracle without one.
+    an npz file (`--comp_ckpt`) or of the original repository's state dict
+    (`--torch_comp_ckpt`), or the ground-truth oracle without either.
 
     Returns (factory, params): factory(data_s, data_t, params) ->
     scnet_fn."""
-    if args.torch_comp_ckpt:
-        raise NotImplementedError(
-            "--torch_comp_ckpt (original-repository state dicts) is not "
-            "ported yet: ROADMAP queue A7")
-    if args.comp_ckpt:
-        if not args.comp_ckpt.endswith(".npz"):
-            raise NotImplementedError(
-                "orbax checkpoint directories are not ported yet (ROADMAP "
-                "queue A7): pass an npz weight file")
+    if args.comp_ckpt or args.torch_comp_ckpt:
         from relativepose_tpu_torch.cli.common import parse_internal_size
         from relativepose_tpu_torch.models import convert
         from relativepose_tpu_torch.models.scnet import SCNet
         from relativepose_tpu_torch.pipeline.recurrent import make_scnet_fn
-        from relativepose_tpu_torch.utils.checkpoint import load_params_npz
+        from relativepose_tpu_torch.utils import torch_import
+        from relativepose_tpu_torch.utils.checkpoint import restore_params
         net = SCNet(output_type=args.outputType, snumclass=args.snumclass,
                     feature_dim=args.featureDim, ngf=args.ngf,
                     internal_size=parse_internal_size(args.internal_size),
@@ -161,7 +165,12 @@ def scnet_fn_factory_from_checkpoint(args, layout: ChannelLayout):
                     skip_layer=bool(args.skipLayer),
                     use_tanh=bool(args.useTanh),
                     dtype=torch.bfloat16 if args.bf16 else None)
-        convert.load_flax_params(net, load_params_npz(args.comp_ckpt))
+        if args.torch_comp_ckpt:
+            torch_import.load_scnet(
+                torch_import.load_torch_state_dict(args.torch_comp_ckpt), net)
+        else:
+            convert.load_flax_params(
+                net, restore_params(args.comp_ckpt)["params"])
         net = net.to(args.device).eval()
         scnet_fn = make_scnet_fn(net)
 
@@ -182,10 +191,6 @@ def scnet_fn_factory_from_checkpoint(args, layout: ChannelLayout):
 
 def main(argv=None):
     args = _parse_args(argv)
-    if args.method in harness.CLASSICAL_METHODS:
-        raise NotImplementedError(
-            f"the classical method {args.method!r} is not ported yet: "
-            "ROADMAP queue A5")
     sigma_table = np.loadtxt(args.para).reshape(-1, 4) if args.para else \
         np.tile([args.sigmaAngle1, args.sigmaAngle2, args.sigmaDist,
                  args.sigmaFeat], (3, 1))
@@ -196,6 +201,14 @@ def main(argv=None):
         sigma_table=sigma_table,
         per_step_errors=bool(args.per_step_errors),
         alter_steps_override=args.alterStep)
+
+    if args.method in harness.CLASSICAL_METHODS:
+        from relativepose_tpu_torch.cli.common import resolve_device
+        from relativepose_tpu_torch.eval import baselines
+        resolve_device(args)
+        runner = baselines.run_classical_eval(args, cfg)
+        print(json.dumps(runner.summary()))
+        return runner
 
     pipe_cfg = PipelineConfig(
         dataset=args.family, mask_method=args.maskMethod,

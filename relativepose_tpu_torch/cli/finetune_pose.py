@@ -9,8 +9,8 @@ The flags of `relativepose_tpu.cli.finetune_pose`, plus `--device`:
 On the CPU at a small width: `--device cpu --bf16 0 --ngf 8` and a
 checkpoint of that width.  Writes `checkpoint_%04d.npz` (SCNet's tree, the
 format `cli.evaluate --comp_ckpt` reads) and its `.resume.npz` to
-experiments/exp_<exp>/params.  Orbax checkpoint directories are not
-ported (ROADMAP queue A7).
+experiments/exp_<exp>/params.  Orbax checkpoint directories are not read
+(`utils/checkpoint.py::restore_params`).
 """
 
 from __future__ import annotations

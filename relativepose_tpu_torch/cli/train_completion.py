@@ -6,9 +6,12 @@
         --feat_ckpt experiments/exp_feat_suncg/params/checkpoint_0001.npz
 
 `--feat_ckpt` loads the frozen feature net from an npz weight file with a
-`net_f` tree: a checkpoint of the feature driver of either package.  Not
-ported yet: orbax checkpoint directories and `--torch_feat_ckpt` (ROADMAP
-queue A7).
+`net_f` tree: a checkpoint of the feature CLI of either package.
+`--torch_feat_ckpt` loads it from the original repository's state dict
+(`utils/torch_import.py`), with its BatchNorm running statistics folded
+into a frozen affine.  Orbax checkpoint directories are not read
+(`utils/checkpoint.py::restore_params`).  `--num_devices` and
+`--model_parallel` as in `cli/train_feature.py`.
 """
 
 from __future__ import annotations
@@ -20,34 +23,17 @@ import torch
 from relativepose_tpu_torch.cli import common, train_feature
 from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.models.resnet import Resnet18_8s
-from relativepose_tpu_torch.train import completion
+from relativepose_tpu_torch.train import completion, mesh
+from relativepose_tpu_torch.utils import torch_import
 from relativepose_tpu_torch.utils.checkpoint import restore_params
-from relativepose_tpu_torch.utils.experiment import (
-    ExperimentDirs,
-    parameters_count,
-)
-from relativepose_tpu_torch.utils.log import FileLogger
+from relativepose_tpu_torch.utils.experiment import parameters_count
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
-    train_feature.add_driver_args(p)
-    p.add_argument("--feat_ckpt", type=str, default=None,
-                   help="frozen feature net: an npz weight file")
-    p.add_argument("--torch_feat_ckpt", type=str, default=None,
-                   help="original-repository netF state dict (not ported "
-                        "yet, ROADMAP queue A7)")
-    args = p.parse_args(argv)
-    common.check_single_device(args)
-    if args.torch_feat_ckpt:
-        raise NotImplementedError(
-            "--torch_feat_ckpt: the original repository's checkpoints load "
-            "through utils/torch_import, ROADMAP queue A7")
+def _train(args, dirs):
     dataset, mask_method = common.resolve_dataset(args)
     device = common.resolve_device(args)
-
-    dirs = ExperimentDirs(args.exp, rm=args.rm, resume=args.resume)
-    logf = FileLogger(dirs.log_path)
+    m = mesh.make_mesh(args.num_devices, args.model_parallel)
+    logf = train_feature.rank_logger(dirs, m)
     cfg = completion.CompletionTrainConfig(
         dataset=dataset, mask_method=mask_method,
         output_type=args.outputType, snumclass=args.snumclass,
@@ -62,28 +48,49 @@ def main(argv=None):
         fc_target=args.fcTarget, w_depth=args.wDepth,
         ngf=args.ngf, base_width=args.base_width,
         internal_size=common.parse_internal_size(args.internal_size),
+        feat_frozen_bn=bool(args.torch_feat_ckpt),
         dtype=torch.bfloat16 if args.bf16 else None)
 
     net_f = None
-    if args.feat_ckpt:
-        net_f = convert.load_flax_params(
-            Resnet18_8s(num_input=7, feature_dim=cfg.feature_dim,
-                        use_tanh=cfg.use_tanh, base_width=cfg.base_width,
-                        dtype=cfg.dtype),
-            restore_params(args.feat_ckpt)["params"]["net_f"])
+    if args.torch_feat_ckpt or args.feat_ckpt:
+        net_f = Resnet18_8s(num_input=7, feature_dim=cfg.feature_dim,
+                            use_tanh=cfg.use_tanh, base_width=cfg.base_width,
+                            dtype=cfg.dtype, frozen_bn=cfg.feat_frozen_bn)
+        if args.torch_feat_ckpt:
+            torch_import.load_resnet18_8s(
+                torch_import.load_torch_state_dict(args.torch_feat_ckpt),
+                net_f)
+        else:
+            convert.load_flax_params(
+                net_f, restore_params(args.feat_ckpt)["params"]["net_f"])
         logf("loaded frozen netF weights")
     state = completion.init_state(cfg, device, seed=0, net_f=net_f)
-    parameters_count(state.models["net_g"], "netG")
+    if m.is_main:
+        parameters_count(state.models["net_g"], "netG")
     gen = torch.Generator(device=device).manual_seed(1)
 
     def step_fn(batch, mode):
-        draws = completion.draw(cfg, batch, gen)
+        # drawn for the global batch, as on one rank; this rank's rows kept
+        draws = mesh.shard_batch(completion.draw(
+            cfg, batch, gen, n=batch["rgb"].shape[0] * m.data), m)
         if mode == "train":
             return completion.train_step(state, batch, draws, cfg)
         return completion.eval_metrics(state, batch, draws, cfg)
 
     return train_feature.run(args, dataset, device, state, dirs, logf,
-                             step_fn)
+                             step_fn, m)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    train_feature.add_driver_args(p)
+    p.add_argument("--feat_ckpt", type=str, default=None,
+                   help="frozen feature net: an npz weight file")
+    p.add_argument("--torch_feat_ckpt", type=str, default=None,
+                   help="the original repository's netF state dict "
+                        "(.pth.tar), converted on load "
+                        "(utils/torch_import.py)")
+    return common.run_ranks(p.parse_args(argv), _train)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,11 @@ the original on-disk layout.  `--device cpu` runs on the CPU.  Each
 checkpoint is `experiments/exp_<name>/params/checkpoint_%04d.npz`, in
 the JAX package's npz format (`utils/checkpoint.py`); scalars go to
 `experiments/exp_<name>/tensorboard/scalars.jsonl`.
+
+`--num_devices N [--model_parallel M]` trains on N ranks, one card each (or
+N CPU processes with `--device cpu`): one global step of `--batch_size`
+pairs over an (N / M) x M data x model mesh (`train/mesh.py`).  Rank 0
+logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -24,25 +29,22 @@ import torch
 
 from relativepose_tpu_torch.cli.common import (
     add_common_training_args,
-    check_single_device,
     resolve_dataset,
     resolve_device,
+    run_ranks,
     synthetic_scene_kwargs,
 )
 from relativepose_tpu_torch.data import datasets as dsets
 from relativepose_tpu_torch.data import device_store as dstore
 from relativepose_tpu_torch.data import pipeline as dpipe
-from relativepose_tpu_torch.train import feature
+from relativepose_tpu_torch.train import feature, mesh
 from relativepose_tpu_torch.utils.callbacks import (
     CallbackLoc,
     OnceCallback,
     PeriodicCallback,
 )
 from relativepose_tpu_torch.utils.checkpoint import CheckpointManager
-from relativepose_tpu_torch.utils.experiment import (
-    ExperimentDirs,
-    parameters_count,
-)
+from relativepose_tpu_torch.utils.experiment import parameters_count
 from relativepose_tpu_torch.utils.log import AverageMeter, FileLogger
 from relativepose_tpu_torch.utils.metrics_writer import MetricsWriter
 from relativepose_tpu_torch.utils.trainer import Trainer
@@ -64,12 +66,15 @@ def make_source(args, split: str, dataset: str):
     return dsets.PanoPairDataset(dataset, split, args.listPath)
 
 
-def batch_iterator(source, args, dataset: str, seed: int, device):
+def batch_iterator(source, args, dataset: str, seed: int, device,
+                   keep=None):
     """The streaming loader (real datasets, or --device_data 0).
 
     A host thread reads, encodes (the on-disk precision: uint8 rgb, int8
     normals, uint16 millimetres) and stacks one batch ahead; the consumer
-    uploads it and decodes and augments it on the device."""
+    uploads it and decodes and augments it on the device.  With `keep` (a
+    data-parallel rank) the global batch is read and drawn for, and `keep`
+    picks this rank's rows."""
     rng = np.random.RandomState(seed)
     fields = (("rgb", dstore.encode_rgb), ("norm", dstore.encode_norm),
               ("depth", dstore.encode_depth),
@@ -112,17 +117,20 @@ def batch_iterator(source, args, dataset: str, seed: int, device):
                 t = {k: dstore.as_tensor(v, device) for k, v in item.items()}
                 rgb, norm, depth, segm = dstore.decode_batch(
                     t["rgb"], t["norm"], t["depth"], t["segm"])
-                draws = dpipe.draw_pair_batch(depth, dataset, gen)
-                yield dpipe.assemble_pair_batch(rgb, norm, depth, t["pose"],
-                                                segm, draws, dataset)
+                batch = (rgb, norm, depth, t["pose"], segm,
+                         dpipe.draw_pair_batch(depth, dataset, gen))
+                if keep is not None:
+                    batch = keep(batch)
+                yield dpipe.assemble_pair_batch(*batch, dataset)
 
     return _Loader()
 
 
-def make_loaders(args, dataset: str, device):
+def make_loaders(args, dataset: str, device, keep=None):
     """(train, val) loaders: device-resident for synthetic sets (uploaded
     once, every batch gathered and augmented on the device), streaming
-    for real datasets or --device_data 0."""
+    for real datasets or --device_data 0.  `keep`: a data-parallel rank's
+    row picker (`mesh.shard_batch`), or None."""
     train_src = make_source(args, "train", dataset)
     val_src = make_source(args, "test", dataset)
     if getattr(args, "device_data", 1) and "synthetic" in args.dataList:
@@ -130,10 +138,10 @@ def make_loaders(args, dataset: str, device):
                                      with_full_frames=False)
                   for src in (train_src, val_src)]
         return tuple(dstore.ResidentLoader(s, args.batch_size, dataset,
-                                           seed=i)
+                                           seed=i, keep=keep)
                      for i, s in enumerate(stores))
-    return (batch_iterator(train_src, args, dataset, 0, device),
-            batch_iterator(val_src, args, dataset, 1, device))
+    return (batch_iterator(train_src, args, dataset, 0, device, keep),
+            batch_iterator(val_src, args, dataset, 1, device, keep))
 
 
 def add_driver_args(p):
@@ -149,11 +157,13 @@ def add_driver_args(p):
                    help="metric fetch cadence (each fetch synchronises)")
 
 
-def run(args, dataset, device, state, dirs, logf, step_fn):
-    """The epoch loop shared by both training drivers: resume, loaders,
-    metric logging every --log_every steps, checkpoints every
-    --save_every epochs and at the end.  step_fn(batch, mode) -> dict of
-    0-d tensors.  Returns the newest checkpoint's path."""
+def run(args, dataset, device, state, dirs, logf, step_fn, m):
+    """The epoch loop shared by both training CLIs: resume, placement
+    on the mesh `m`, loaders, metric logging every --log_every steps,
+    checkpoints every --save_every epochs and at the end (rank 0 logs and
+    writes; every rank takes part in gathering split parameters).
+    step_fn(batch, mode) -> dict of 0-d tensors.  Returns the newest
+    checkpoint's path on rank 0, None on the others."""
     ckpt = CheckpointManager(dirs.params_dir, keep=3)
     start_epoch = 0
     if args.resume:
@@ -164,8 +174,10 @@ def run(args, dataset, device, state, dirs, logf, step_fn):
             start_epoch = ckpt.all_steps()[-1]
         logf("resume: " + (f"ok, from epoch {start_epoch}" if ok
                            else "no checkpoint found"))
+    mesh.shard_train_state(state, m, tensor_parallel=m.model > 1)
     meter = AverageMeter()
-    tb = MetricsWriter(os.path.join(dirs.exp_dir, "tensorboard"))
+    tb = MetricsWriter(os.path.join(dirs.exp_dir, "tensorboard")) \
+        if m.is_main else None
     count = {"n": 0}
 
     def logged_step(batch, mode):
@@ -175,35 +187,42 @@ def run(args, dataset, device, state, dirs, logf, step_fn):
             return {}
         metrics = {k: float(v) for k, v in metrics.items()}
         meter.update(metrics["loss"])
-        tb.scalars("loss", {f"{mode}_{k}": v for k, v in metrics.items()},
-                   count["n"])
+        if tb is not None:
+            tb.scalars("loss", {f"{mode}_{k}": v
+                                for k, v in metrics.items()}, count["n"])
         return metrics
 
     def save_cb(context):
-        ckpt.save(context["epoch"], state)
+        with mesh.gathered(state):
+            if m.is_main:
+                ckpt.save(context["epoch"], state)
         logf(f"epoch {context['epoch']}: checkpoint saved; "
              f"avg loss {meter.avg:.6f}")
 
-    train_loader, val_loader = make_loaders(args, dataset, device)
+    keep = (lambda tree: mesh.shard_batch(tree, m)) if m.data > 1 else None
+    train_loader, val_loader = make_loaders(args, dataset, device, keep)
+    agree = (lambda go: mesh.all_agree(go, device)) if m.data * m.model > 1 \
+        else None
     Trainer(step_fn=logged_step, train_loader=train_loader,
             val_loader=val_loader, max_epoch=args.max_epoch,
             train_duration=args.train_duration, epoch=start_epoch,
+            agree=agree, verbose=m.is_main,
             callbacks=[PeriodicCallback(CallbackLoc.epoch_end,
                                         args.save_every, save_cb),
                        OnceCallback(CallbackLoc.train_end, save_cb)]).run()
-    return ckpt.path(ckpt.all_steps()[-1])
+    return ckpt.path(ckpt.all_steps()[-1]) if m.is_main else None
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
-    add_driver_args(p)
-    args = p.parse_args(argv)
-    check_single_device(args)
+def rank_logger(dirs, m):
+    """Rank 0's FileLogger; the other ranks log nothing."""
+    return FileLogger(dirs.log_path) if m.is_main else (lambda msg: None)
+
+
+def _train(args, dirs):
     dataset, _ = resolve_dataset(args)
     device = resolve_device(args)
-
-    dirs = ExperimentDirs(args.exp, rm=args.rm, resume=args.resume)
-    logf = FileLogger(dirs.log_path)
+    m = mesh.make_mesh(args.num_devices, args.model_parallel)
+    logf = rank_logger(dirs, m)
     cfg = feature.FeatureTrainConfig(
         snumclass=args.snumclass, feature_dim=args.featureDim,
         use_tanh=bool(args.useTanh), margin=args.D,
@@ -212,16 +231,25 @@ def main(argv=None):
         base_width=args.base_width,
         dtype=torch.bfloat16 if args.bf16 else None)
     state = feature.init_state(cfg, device, seed=0)
-    parameters_count(state.models["net_f"], "netF")
+    if m.is_main:
+        parameters_count(state.models["net_f"], "netF")
     gen = torch.Generator(device=device).manual_seed(1)
 
     def step_fn(batch, mode):
-        negatives = feature.draw_negatives(cfg, batch, gen)
+        # drawn for the global batch, as on one rank; this rank's rows kept
+        negatives = mesh.shard_batch(feature.draw_negatives(
+            cfg, batch, gen, n=batch["rgb"].shape[0] * m.data), m)
         if mode == "train":
             return feature.train_step(state, batch, negatives, cfg)
         return feature.eval_metrics(state, batch, negatives, cfg)
 
-    return run(args, dataset, device, state, dirs, logf, step_fn)
+    return run(args, dataset, device, state, dirs, logf, step_fn, m)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    add_driver_args(p)
+    return run_ranks(p.parse_args(argv), _train)
 
 
 if __name__ == "__main__":

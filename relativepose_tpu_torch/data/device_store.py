@@ -79,9 +79,14 @@ def decode_batch(rgb, norm, depth, segm):
     """Encoded [B, 2, ...] tensors -> f32 rgb in [0, 1], normals, depth in
     metres, int64 segm.  depth is uint16 millimetres or their int16 bit
     pattern."""
-    mm = depth.to(torch.int32) & 0xFFFF
-    return (decode(rgb, "rgb"), decode(norm, "norm"), decode(mm, "depth"),
+    return (decode(rgb, "rgb"), decode(norm, "norm"), decode_depth(depth),
             segm.to(torch.int64))
+
+
+def decode_depth(depth):
+    """Encoded depth (uint16 millimetres or their int16 bit pattern) ->
+    f32 metres."""
+    return decode(depth.to(torch.int32) & 0xFFFF, "depth")
 
 
 class DeviceStore:
@@ -133,14 +138,18 @@ class ResidentLoader:
     """Iterable of device-assembled batches over a DeviceStore.
 
     Each pass is one shuffled epoch; a batch costs only launches (gather
-    and augmentation run on the device)."""
+    and augmentation run on the device).  With `keep` (a data-parallel
+    rank, `train/mesh.py::shard_batch`) the global batch's indices and
+    draws are made as on one rank and `keep` picks this rank's rows of
+    them, so every rank's generator stays in step."""
 
     def __init__(self, store: DeviceStore, batch_size: int, dataset: str,
-                 seed: int = 0, feature_learning: bool = True):
+                 seed: int = 0, feature_learning: bool = True, keep=None):
         self.store = store
         self.batch_size = batch_size
         self.dataset = config.canonical_dataset(dataset)
         self.feature_learning = feature_learning
+        self.keep = keep
         self._rng = np.random.RandomState(seed)
         self.device = store.arrays["rgb"].device
 
@@ -155,5 +164,11 @@ class ResidentLoader:
             idx = torch.from_numpy(
                 order[lo:lo + self.batch_size].astype(np.int64)).to(
                 self.device)
+            draws = None
+            if self.keep is not None:
+                depth = decode_depth(self.store.arrays["depth"][idx])
+                idx, draws = self.keep((idx, dpipe.draw_pair_batch(
+                    depth, self.dataset, gen)))
             yield gather_batch(self.store.arrays, idx, self.dataset,
-                               self.feature_learning, generator=gen)
+                               self.feature_learning, draws=draws,
+                               generator=gen)

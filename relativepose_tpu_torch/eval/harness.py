@@ -11,8 +11,8 @@ ours_nc), with the protocol of the original evaluation.py:
     resume-by-count.
 
 The batched eval fn runs `batch_pairs` pano pairs through the recurrent
-pipeline per call, on one device.  The classical baselines are not part
-of the port yet (ROADMAP queue A5).
+pipeline per call, on one device.  The classical baselines' per-pair loop
+is `eval/baselines.py`.
 """
 
 from __future__ import annotations

@@ -256,6 +256,17 @@ def draw_keypoints(det_s_valid, det_t_valid, cfg: KeypointConfig,
     return KeypointDraws(sel_t1, sel_s, rnd_u, sel_t2)
 
 
+def draw_keypoints_per_pair(det_s_valid, det_t_valid, cfg: KeypointConfig,
+                            mask_method: str = "second",
+                            generators=()) -> KeypointDraws:
+    """`draw_keypoints` with pair i's draws from generators[i], so a
+    pair's draws do not depend on the batch it is in."""
+    rows = [draw_keypoints(det_s_valid[i:i + 1], det_t_valid[i:i + 1], cfg,
+                           mask_method, g) for i, g in enumerate(generators)]
+    return KeypointDraws(*(torch.cat([getattr(r, f.name) for r in rows])
+                           for f in dataclasses.fields(KeypointDraws)))
+
+
 def detect_observed(rgb, cfg: KeypointConfig, gray_full=None):
     """Step-invariant DoG detection on the observed region.
 

@@ -8,7 +8,11 @@ its public signature.
 BatchNorm statistics are taken per group of `group` consecutive samples
 (the 2 views of one pano pair in the pipeline), which is what `vmap` over
 pairs gives the JAX package.  Statistics are computed in f32 as
-E[x^2] - E[x]^2 and the result is cast back to the activation dtype.
+E[x^2] - E[x]^2 and the result is cast back to the activation dtype.  In
+data-parallel training (`train/mesh.py`) each group's sums are reduced
+over the data group, so the statistics are the global batch's.  A conv
+whose kernel is split over a model group gathers its output channels
+(`mesh.gather_channels`).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from relativepose_tpu_torch.train import mesh
 
 
 class BatchNorm2d(nn.Module):
@@ -37,6 +43,9 @@ class BatchNorm2d(nn.Module):
         self.frozen = frozen
         self.weight = nn.Parameter(1.0 + 0.02 * torch.randn(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        # the data group of `train/mesh.py`, whose ranks hold the other
+        # rows of each group
+        self.sync_group = None
 
     def forward(self, x, group=None):
         n, c, h, w = x.shape
@@ -45,9 +54,24 @@ class BatchNorm2d(nn.Module):
                 + self.bias.view(1, c, 1, 1)
             return y.to(x.dtype)
         g = group or n
-        xf = x.float().reshape(n // g, g, c, h, w)
-        mean = xf.mean(dim=(1, 3, 4), keepdim=True)
-        var = (xf * xf).mean(dim=(1, 3, 4), keepdim=True) - mean * mean
+        if self.sync_group is None:
+            xf = x.float().reshape(n // g, g, c, h, w)
+            mean = xf.mean(dim=(1, 3, 4), keepdim=True)
+            var = (xf * xf).mean(dim=(1, 3, 4), keepdim=True) - mean * mean
+        else:
+            # f64 activations keep f64 statistics here, so that an f64 step
+            # on several ranks can be held to the 1-rank step: in f32 the
+            # order of the sums moves SCNet's 1x1 bottleneck visibly
+            # (tests/test_torch_mesh.py)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+                n // g, g, c, h, w)
+            sums = mesh.global_sum(torch.cat([
+                xf.sum(dim=(1, 3, 4), keepdim=True),
+                (xf * xf).sum(dim=(1, 3, 4), keepdim=True)], dim=1),
+                self.sync_group)
+            count = g * h * w * mesh.group_size(self.sync_group)
+            mean, sq = sums[:, :1] / count, sums[:, 1:] / count
+            var = sq - mean * mean
         y = (xf - mean) * torch.rsqrt(var + self.eps) \
             * self.weight.view(1, 1, c, 1, 1) + self.bias.view(1, 1, c, 1, 1)
         return y.reshape(n, c, h, w).to(x.dtype)
@@ -55,6 +79,25 @@ class BatchNorm2d(nn.Module):
 
 def _pair(k):
     return tuple(k) if isinstance(k, (tuple, list)) else (k, k)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
+           transpose=False):
+    """F.conv2d (or F.conv_transpose2d) in x's dtype; a kernel split over
+    a model group computes its output channels and gathers the rest."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    split = getattr(weight, "shard", None) is not None
+    if split:
+        x = mesh.split_conv_input(x, weight)
+    if transpose:
+        y = F.conv_transpose2d(x, w, None if split else b, stride, padding)
+    else:
+        y = F.conv2d(x, w, None if split else b, stride, padding, dilation)
+    if not split:
+        return y
+    y = mesh.gather_channels(y, weight)
+    return y if b is None else y + b.view(1, -1, 1, 1)
 
 
 class ConvBlock(nn.Module):
@@ -71,9 +114,7 @@ class ConvBlock(nn.Module):
 
     def forward(self, x, group=None):
         c = self.conv
-        bias = None if c.bias is None else c.bias.to(x.dtype)
-        x = F.conv2d(x, c.weight.to(x.dtype), bias, c.stride, c.padding,
-                     c.dilation)
+        x = conv2d(x, c.weight, c.bias, c.stride, c.padding, c.dilation)
         if self.bn is not None:
             x = self.bn(x, group)
         return F.leaky_relu(x, 0.1) if self.act else x
@@ -100,9 +141,8 @@ class DeconvBlock(nn.Module):
         self.act = act
 
     def forward(self, x, group=None):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        x = F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride,
-                               self.padding)
+        x = conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                   transpose=True)
         if self.bn is not None:
             x = self.bn(x, group)
         return F.leaky_relu(x, 0.1) if self.act else x

@@ -23,7 +23,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from relativepose_tpu_torch.models.blocks import BatchNorm2d, resize_nchw
+from relativepose_tpu_torch.models.blocks import (
+    BatchNorm2d,
+    conv2d,
+    resize_nchw,
+)
 
 
 def _lecun_normal_(w):
@@ -35,9 +39,7 @@ def _lecun_normal_(w):
 
 
 def _conv(x, conv):
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
-                    conv.padding)
+    return conv2d(x, conv.weight, conv.bias, conv.stride, conv.padding)
 
 
 def _xavier_conv(cin, cout, k, stride=1, padding=0):

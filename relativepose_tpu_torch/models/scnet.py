@@ -24,6 +24,7 @@ from relativepose_tpu_torch.config import ChannelLayout
 from relativepose_tpu_torch.models.blocks import (
     ConvBlock,
     DeconvBlock,
+    conv2d,
     resize_nchw,
 )
 
@@ -171,8 +172,7 @@ class SCNet(nn.Module):
                 if self.skip and s1 is not None:
                     d2 = cat(d2, s1)
             head = self.heads[hi]
-            o = nn.functional.conv2d(d2, head.weight.to(d2.dtype),
-                                     head.bias.to(d2.dtype))
+            o = conv2d(d2, head.weight, head.bias)
             if name == "f" and self.use_tanh:
                 o = torch.tanh(o)
             outs.append(o)

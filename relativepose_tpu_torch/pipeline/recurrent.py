@@ -46,6 +46,7 @@ from relativepose_tpu_torch.match.keypoints import (
     KeypointDraws,
     detect_observed,
     draw_keypoints,
+    draw_keypoints_per_pair,
     rgb_to_gray,
 )
 from relativepose_tpu_torch.match.solver import (
@@ -208,7 +209,9 @@ def estimate_pose_via_completion(
                                 cfg.keypoints, gray_full_t)
     # every step's draws before the first step, in the order the steps
     # would make them: a rematerialised step must not draw again
-    draws = [d if d is not None else draw_keypoints(
+    draw = draw_keypoints_per_pair if isinstance(generator, (list, tuple)) \
+        else draw_keypoints
+    draws = [d if d is not None else draw(
         det_s[1], det_t[1], cfg.keypoints, cfg.mask_method, generator)
         for d in (draws or [None] * cfg.alter_steps)]
 

@@ -114,8 +114,11 @@ def init_state(cfg: CompletionTrainConfig, device="cuda", seed: int = 0,
                       frozen={"net_f": net_f})
 
 
-def draw(cfg, batch, generator=None) -> CompletionDraws:
-    n, k = batch["denseCorres"]["idx_src"].shape[:2]
+def draw(cfg, batch, generator=None, n=None) -> CompletionDraws:
+    """The step's draws; `n` pairs (the global batch of a data-parallel
+    step, `train/mesh.py`) instead of the batch's own."""
+    n_local, k = batch["denseCorres"]["idx_src"].shape[:2]
+    n = n_local if n is None else n
     h, w = batch["rgb"].shape[2:4]
     dev = batch["rgb"].device
     use_type1 = torch.rand((), generator=generator, device=dev) < 0.5
@@ -156,8 +159,9 @@ def _assemble_views(batch, cfg: CompletionTrainConfig):
 
 
 def loss_fn(net_g, net_f, batch, draws: CompletionDraws,
-            cfg: CompletionTrainConfig):
-    """Returns (total, metrics of 0-d tensors)."""
+            cfg: CompletionTrainConfig, group=None):
+    """Returns (total, metrics of 0-d tensors); with a data-parallel
+    `group` the global batch's."""
     a = _assemble_views(batch, cfg)
     n = a["n"]
     fake = net_g(a["view4n"])                         # [4n, H, W, C]
@@ -169,13 +173,14 @@ def loss_fn(net_g, net_f, batch, draws: CompletionDraws,
     for m in ("rgb", "n", "d"):
         if m in sp:
             lo, hi = sp[m]
-            l = losses.masked_l1(fake[..., lo:hi], gt[m], a["total_weight"])
+            l = losses.masked_l1(fake[..., lo:hi], gt[m], a["total_weight"],
+                                 group=group)
             metrics[f"loss_{m}"] = l
             total = total + (cfg.w_depth * l if m == "d" else l)
     if "s" in sp and a["segm4"] is not None:
         lo, hi = sp["s"]
         l = losses.weighted_ce(fake[..., lo:hi], a["segm4"],
-                               a["total_weight"])
+                               a["total_weight"], group=group)
         metrics["loss_s"] = l
         total = total + l
 
@@ -190,7 +195,7 @@ def loss_fn(net_g, net_f, batch, draws: CompletionDraws,
         fc_w = a["geow4"] if cfg.fc_weight_mode == "geow" else \
             torch.ones_like(a["geow4"])
         loss_fc = cfg.fc_scale * losses.feature_consistency_loss(
-            fake[..., lo:hi], fakec, a["data_mask"], fc_w)
+            fake[..., lo:hi], fakec, a["data_mask"], fc_w, group=group)
         t1 = draws.use_type1
         feat_s = torch.where(t1, fake[2 * n:3 * n, ..., lo:hi],
                              fake[0:n, ..., lo:hi])
@@ -198,7 +203,7 @@ def loss_fn(net_g, net_f, batch, draws: CompletionDraws,
                              fake[n:2 * n, ..., lo:hi])
         loss_fl, loss_pos, loss_neg = losses.contrastive_loss(
             feat_s, feat_t, batch["denseCorres"], draws.negatives,
-            cfg.margin, hard_negatives=cfg.hard_negatives)
+            cfg.margin, hard_negatives=cfg.hard_negatives, group=group)
         metrics.update(loss_fc=loss_fc, loss_fl=loss_fl,
                        loss_fl_pos=loss_pos, loss_fl_neg=loss_neg,
                        used_type1=t1.to(torch.float32))
@@ -209,7 +214,8 @@ def loss_fn(net_g, net_f, batch, draws: CompletionDraws,
         depth_gt = pack(batch, "depth")
         loss_pn = losses.plane_normal_loss(
             torch.cat([depth_gt, depth_gt], dim=0),
-            fake[..., lo_n:lo_n + 3], fake[..., lo_d] * 4.0, cfg.dataset)
+            fake[..., lo_n:lo_n + 3], fake[..., lo_d] * 4.0, cfg.dataset,
+            group=group)
         metrics["loss_pn"] = loss_pn
         total = total + loss_pn
 
@@ -223,8 +229,9 @@ def train_step(state: TrainState, batch, draws: CompletionDraws,
     gradient norm."""
     state.optimizer.zero_grad(set_to_none=False)
     with record_function("rp.forward"):
-        total, metrics = loss_fn(state.models["net_g"],
-                                 state.frozen["net_f"], batch, draws, cfg)
+        total, metrics = loss_fn(state.module("net_g"),
+                                 state.frozen["net_f"], batch, draws, cfg,
+                                 state.data_group)
     with record_function("rp.backward"):
         total.backward()
     with record_function("rp.adam"):
@@ -238,4 +245,4 @@ def eval_metrics(state: TrainState, batch, draws: CompletionDraws,
                  cfg: CompletionTrainConfig) -> dict:
     with torch.no_grad():
         return loss_fn(state.models["net_g"], state.frozen["net_f"], batch,
-                       draws, cfg)[1]
+                       draws, cfg, state.data_group)[1]

@@ -20,7 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from relativepose_tpu_torch.models.resnet import Resnet18_8s, SegmentationHead
-from relativepose_tpu_torch.train import losses
+from relativepose_tpu_torch.train import losses, mesh
 from relativepose_tpu_torch.train.state import (
     TrainState,
     grad_norm,
@@ -74,16 +74,18 @@ def complete_views(batch):
                       pack(batch, "depth")[..., None]], dim=-1)
 
 
-def draw_negatives(cfg, batch, generator=None):
-    """The contrastive loss's negatives for `batch` from `generator`."""
-    n, k = batch["denseCorres"]["idx_src"].shape[:2]
+def draw_negatives(cfg, batch, generator=None, n=None):
+    """The contrastive loss's negatives for `batch` from `generator`; for
+    `n` pairs (the global batch of a data-parallel step) if given."""
+    n_local, k = batch["denseCorres"]["idx_src"].shape[:2]
+    n = n_local if n is None else n
     h, w = batch["rgb"].shape[2:4]
     return losses.draw_negatives(n, k, h, w, cfg.hard_negatives,
                                  generator=generator,
                                  device=batch["rgb"].device)
 
 
-def loss_fn(models, batch, negatives, cfg: FeatureTrainConfig):
+def loss_fn(models, batch, negatives, cfg: FeatureTrainConfig, group=None):
     """batch: rgb [n, 2, H, W, 3], norm [n, 2, H, W, 3], depth [n, 2, H, W],
     dataMask [n, 2, H, W, 1], segm [n, 2, H, W], denseCorres with a
     leading [n].  Returns (total, metrics of 0-d tensors)."""
@@ -91,14 +93,14 @@ def loss_fn(models, batch, negatives, cfg: FeatureTrainConfig):
     feat = models["net_f"](complete_views(batch))
     loss_fl, loss_pos, loss_neg = losses.contrastive_loss(
         feat[:n], feat[n:], batch["denseCorres"], negatives, cfg.margin,
-        hard_negatives=cfg.hard_negatives)
+        hard_negatives=cfg.hard_negatives, group=group)
     metrics = {"loss_fl": loss_fl, "loss_fl_pos": loss_pos,
                "loss_fl_neg": loss_neg}
     total = loss_fl
     if cfg.featlearn_segm:
         seg_pred = models["seg"](feat)
         loss_s = losses.weighted_ce(seg_pred, pack(batch, "segm"),
-                                    pack(batch, "dataMask"))
+                                    pack(batch, "dataMask"), group=group)
         metrics["loss_s"] = loss_s
         total = total + loss_s
     metrics["loss"] = total
@@ -112,13 +114,16 @@ def train_step(state: TrainState, batch, negatives,
     params = state.parameters()
     state.optimizer.zero_grad(set_to_none=False)
     with record_function("rp.forward"):
-        total, metrics = loss_fn(state.models, batch, negatives, cfg)
+        total, metrics = loss_fn(
+            {k: state.module(k) for k in state.models}, batch, negatives,
+            cfg, state.data_group)
     with record_function("rp.backward"):
         total.backward()
     with record_function("rp.adam"):
         metrics["grad_norm"] = grad_norm(params)
-        any_valid = (torch.sum(batch["denseCorres"]["valid"]) > 0).to(
-            torch.float32)
+        any_valid = (mesh.global_sum(
+            torch.sum(batch["denseCorres"]["valid"].to(torch.float32)),
+            state.data_group) > 0).to(torch.float32)
         for p in params:
             p.grad.mul_(any_valid)
         state.optimizer.step()
@@ -129,4 +134,5 @@ def train_step(state: TrainState, batch, negatives,
 def eval_metrics(state: TrainState, batch, negatives,
                  cfg: FeatureTrainConfig) -> dict:
     with torch.no_grad():
-        return loss_fn(state.models, batch, negatives, cfg)[1]
+        return loss_fn(state.models, batch, negatives, cfg,
+                       state.data_group)[1]

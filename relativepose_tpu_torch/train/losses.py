@@ -10,6 +10,10 @@ a torch generator), so a test can hand the JAX package's draws to both.
 Features enter the distance computations in f32, whatever the network's
 compute dtype: the losses' distance products stay f32 (TF32 off, see
 `pipeline/recurrent.py::set_numerics`).
+
+Every loss takes a `group`: in data-parallel training (`train/mesh.py`)
+its sums and counts are reduced over that process group, so each rank's
+value is the global batch's loss.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 
 from relativepose_tpu_torch import config
 from relativepose_tpu_torch.core import skybox
+from relativepose_tpu_torch.train import mesh
 from relativepose_tpu_torch.match.keypoints import topk_stable
 
 _EPS = 1e-12
@@ -32,6 +37,16 @@ class NegativeDraws(NamedTuple):
     negatives, [n, n_candidates] for the hard-mining candidate pool."""
     y: torch.Tensor
     x: torch.Tensor
+
+
+def _sum(x, group):
+    return mesh.global_sum(torch.sum(x), group)
+
+
+def _mean(x, group):
+    if group is None:
+        return torch.mean(x)
+    return _sum(x, group) / (x.numel() * mesh.group_size(group))
 
 
 def draw_negatives(n: int, k: int, h: int, w: int, hard_negatives: bool,
@@ -57,7 +72,7 @@ def _gather_feat(feat, idx):
 def contrastive_loss(feat_s, feat_t, dense, negatives: NegativeDraws,
                      margin: float = 0.5, n_neg: int = 100,
                      hard_negatives: bool = False,
-                     exclude_radius: float = 8.0):
+                     exclude_radius: float = 8.0, group=None):
     """Contrastive correspondence loss.
 
     feat_s/feat_t: [n, H, W, C]; dense: dict(idx_src [n, K, 2],
@@ -73,19 +88,19 @@ def contrastive_loss(feat_s, feat_t, dense, negatives: NegativeDraws,
     feat_t = feat_t.float()
     k = dense["idx_src"].shape[1]
     valid = dense["valid"].to(feat_s.dtype)
-    n_valid = torch.sum(valid)
+    n_valid = _sum(valid, group)
 
     fs = _gather_feat(feat_s, dense["idx_src"])
     ft = _gather_feat(feat_t, dense["idx_tgt"])
     pos_d2 = torch.sum((fs - ft) ** 2, dim=-1)
-    loss_pos = torch.sum(pos_d2 * valid[:, None]) / (n_valid * k + _EPS)
+    loss_pos = _sum(pos_d2 * valid[:, None], group) / (n_valid * k + _EPS)
 
     b = torch.arange(feat_t.shape[0], device=feat_t.device)
     if not hard_negatives:
         f_neg = feat_t[b[:, None, None], negatives.y, negatives.x]
         neg_d2 = torch.sum((fs[:, :, None, :] - f_neg) ** 2, dim=-1)
         hinge = torch.clamp(margin - neg_d2, min=0.0)
-        loss_neg = torch.sum(hinge * valid[:, None, None]) / (
+        loss_neg = _sum(hinge * valid[:, None, None], group) / (
             n_valid * k * n_neg + _EPS)
         return loss_pos + loss_neg, loss_pos, loss_neg
 
@@ -103,32 +118,33 @@ def contrastive_loss(feat_s, feat_t, dense, negatives: NegativeDraws,
     neg_d2 = -neg_d2
     hinge = torch.where(torch.isfinite(neg_d2),
                         torch.clamp(margin - neg_d2, min=0.0), 0.0)
-    loss_neg = torch.sum(hinge * valid[:, None, None]) / (
+    loss_neg = _sum(hinge * valid[:, None, None], group) / (
         n_valid * k * n_neg + _EPS)
     return loss_pos + loss_neg, loss_pos, loss_neg
 
 
-def masked_l1(pred, target, weight):
+def masked_l1(pred, target, weight, group=None):
     """mean(|pred - target| * weight) over all elements."""
-    return torch.mean(torch.abs(pred.float() - target) * weight)
+    return _mean(torch.abs(pred.float() - target) * weight, group)
 
 
-def weighted_ce(logits, labels, weight, scale: float = 0.1):
+def weighted_ce(logits, labels, weight, scale: float = 0.1, group=None):
     """Per-pixel cross-entropy * weight, mean over all pixels, x scale."""
     logp = F.log_softmax(logits.float(), dim=-1)
     ce = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return torch.mean(ce * weight[..., 0]) * scale
+    return _mean(ce * weight[..., 0], group) * scale
 
 
-def feature_consistency_loss(f_pred, f_teacher, data_mask, geow):
+def feature_consistency_loss(f_pred, f_teacher, data_mask, geow,
+                             group=None):
     """||(f_pred - f_teacher) * dataMask * geow||^2 summed over channels,
     mean over pixels; no gradient reaches the teacher."""
     d = (f_pred.float() - f_teacher.detach().float()) * data_mask * geow
-    return torch.mean(torch.sum(d * d, dim=-1))
+    return _mean(torch.sum(d * d, dim=-1), group)
 
 
 def plane_normal_loss(depth_gt, normal_pred, plane_pred, dataset: str,
-                      scale: float = 0.1):
+                      scale: float = 0.1, group=None):
     """Plane-normal-depth consistency, masked.
 
     depth_gt: [n, H, W]; normal_pred: [n, H, W, 3]; plane_pred: [n, H, W]
@@ -161,5 +177,5 @@ def plane_normal_loss(depth_gt, normal_pred, plane_pred, dataset: str,
         zd = depth_gt[:, :, blk].reshape(n, -1)
         pc_d = torch.stack([xs[None] * zd, ys[None] * zd, -zd], dim=-1)
         diff = torch.clamp(pc_d - pc_pn, -5.0, 5.0)
-        total = total + torch.mean(torch.abs(diff) * mask[..., None])
+        total = total + _mean(torch.abs(diff) * mask[..., None], group)
     return total * scale

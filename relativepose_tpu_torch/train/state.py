@@ -14,7 +14,7 @@ run needs (f32 parameters, Adam moments and steps) under torch names.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,21 @@ class TrainState:
     # its npz holds SCNet keys at the root, as the JAX package's does)
     root: Optional[str] = None
     frozen: dict = dataclasses.field(default_factory=dict)
+    # set by train.mesh.shard_train_state: the mesh, and the trained
+    # networks wrapped for data parallelism
+    mesh: Any = None
+    wrapped: dict = dataclasses.field(default_factory=dict)
+
+    def module(self, name: str):
+        """The network to call in a training step: its data-parallel
+        wrapper where there is one."""
+        return self.wrapped.get(name, self.models[name])
+
+    @property
+    def data_group(self):
+        """The process group the step's batch statistics and loss sums
+        reduce over (None on one rank)."""
+        return None if self.mesh is None else self.mesh.data_group
 
     def parameters(self):
         return [p for m in self.models.values() for p in m.parameters()]
@@ -146,9 +161,19 @@ def make_optimizer(params, lr: float, b1: float, b2: float):
 
 
 def grad_norm(params):
-    """Global L2 norm of the gradients of `params` (a 0-d tensor)."""
-    return torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm([p.grad for p in params])))
+    """Global L2 norm of the gradients of `params` (a 0-d tensor); the
+    squares of a parameter split over a model group (`train/mesh.py`) are
+    summed over that group."""
+    full = [p.grad for p in params if getattr(p, "shard", None) is None]
+    split = [p for p in params if getattr(p, "shard", None) is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(full)))
+    if not split:
+        return norm
+    import torch.distributed as dist
+    sq = torch.stack(torch._foreach_norm([p.grad for p in split])).square()
+    sq = sq.sum()
+    dist.all_reduce(sq, group=split[0].shard.group)
+    return torch.sqrt(norm.square() + sq)
 
 
 def init_models(build, seed: int):

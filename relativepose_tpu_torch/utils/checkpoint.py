@@ -11,7 +11,7 @@ modules.
 keep-N and partial-restore semantics without orbax (which needs JAX):
 each save writes `checkpoint_%04d.npz`, the trained networks' parameter
 tree in the npz format above, and beside it `checkpoint_%04d.resume.npz`,
-everything a resumed run needs in f32 (`train/state.py`).
+everything a resumed run needs in f32 (`train/state.py`), uncompressed.
 """
 
 from __future__ import annotations
@@ -61,13 +61,25 @@ def load_params_npz(path: str, dtype=np.float32):
 
 def restore_params(path: str):
     """An npz weight file -> {'params': tree}, as the JAX package's
-    `restore_params` returns for npz.  Orbax checkpoint directories are
-    not ported (ROADMAP queue A7)."""
+    `restore_params` returns for npz.
+
+    Orbax checkpoint directories are not read: orbax keeps its arrays
+    through tensorstore, which this package does not depend on, and npz
+    carries the same trees.  Export one where JAX is installed with
+    `relativepose_tpu.utils.checkpoint.save_params_npz`."""
+    require_npz(path)
+    return {"params": load_params_npz(path)}
+
+
+def require_npz(path: str):
+    """Raise unless `path` names an npz weight file (`restore_params`)."""
     if not path.endswith(".npz"):
         raise NotImplementedError(
-            f"{path}: orbax checkpoint directories need the JAX package "
-            "(ROADMAP queue A7); pass an npz weight file")
-    return {"params": load_params_npz(path)}
+            f"{path}: orbax checkpoint directories are not read (orbax "
+            "keeps arrays through tensorstore, which this package does not "
+            "depend on).  Export the tree to npz where JAX is installed, "
+            "with relativepose_tpu.utils.checkpoint.save_params_npz, and "
+            "pass the npz file")
 
 
 class CheckpointManager:
@@ -92,8 +104,10 @@ class CheckpointManager:
         """Write `state`'s (a `train.state.TrainState`) parameter tree and
         resume arrays; keep the newest `keep` checkpoints."""
         path = save_params_npz(self.path(step), state.params_tree())
-        np.savez_compressed(self.path(step, resume=True),
-                            **state.resume_arrays())
+        # uncompressed: f32 weights and Adam moments barely compress, and
+        # zlib over SCNet's 146 M values was most of a short training
+        # run's time (chip_smoke.py 6b, 7b)
+        np.savez(self.path(step, resume=True), **state.resume_arrays())
         steps = self.all_steps()
         for s in steps[: max(0, len(steps) - self.keep)]:
             for resume in (False, True):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Iterable, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 from relativepose_tpu_torch.utils.callbacks import (
     Callback,
@@ -32,13 +32,21 @@ class Trainer:
     train_test_ratio: int = 5       # factory.py:21
     callbacks: Sequence[Callback] = ()
     epoch: int = 0
+    # agree(go) -> go on every rank: data-parallel ranks end a time-boxed
+    # phase at the same step (`train/mesh.py::all_agree`)
+    agree: Optional[Callable[[bool], bool]] = None
+    verbose: bool = True
+
+    def _go_on(self, start, budget):
+        go = time.time() - start < budget
+        return go if self.agree is None else self.agree(go)
 
     def _phase(self, loader, mode: str, budget: float, context):
         meter = AverageMeter()
         start = time.time()
         it = iter(loader)
         n = 0
-        while time.time() - start < budget:
+        while self._go_on(start, budget):
             try:
                 batch = next(it)
             except StopIteration:
@@ -54,9 +62,10 @@ class Trainer:
             n += 1
             context["global_step"] = context.get("global_step", 0) + 1
             run_callbacks(self.callbacks, CallbackLoc.batch_end, context)
-        colored_log(
-            f"[{mode}] ", f"epoch {self.epoch}: {n} steps, "
-            f"avg loss {meter.avg:.6f}")
+        if self.verbose:
+            colored_log(
+                f"[{mode}] ", f"epoch {self.epoch}: {n} steps, "
+                f"avg loss {meter.avg:.6f}")
         return meter.avg
 
     def run(self):

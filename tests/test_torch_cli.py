@@ -89,6 +89,21 @@ def test_port_imports_no_jax():
     for path in files:
         with open(path) as f:
             assert not pat.search(f.read()), path
+    # and importing the modules of the last slice loads none of them
+    mods = ["native.registration", "eval.baselines", "utils.torch_import",
+            "train.mesh", "train.mesh_dryrun", "utils.profiling",
+            "utils.img", "utils.plot", "utils.visualization"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module('relativepose_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'relativepose_tpu')]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_flags_match_jax():
@@ -103,10 +118,13 @@ def test_flags_match_jax():
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--method", "gs"], "A5"),
-    (["--torch_comp_ckpt", "x.pth.tar"], "A7"),
-    (["--comp_ckpt", "experiments/exp_comp/params"], "A7")])
+    (["--comp_ckpt", "experiments/exp_comp/params"], "orbax"),
+    (["--comp_ckpt", "params_dir", "--method", "ours_nr"], "tensorstore"),
+    (["--comp_ckpt", "params_dir", "--method", "ours_nc"],
+     "save_params_npz")])
 def test_unported_options_raise(tmp_path, monkeypatch, extra, match):
+    """Orbax checkpoint directories are the one input the port does not
+    read; the error gives the reason and the npz route."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(cli_args("suncg", "x", "--device", "cpu", *extra))

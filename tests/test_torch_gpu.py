@@ -436,3 +436,46 @@ def test_gather_eval_pairs_on_card_matches_cpu(cuda):
         for k in a:
             assert torch.equal(b[k].cpu(), a[k]), k
     torch.testing.assert_close(card[2].cpu(), cpu[2], rtol=0, atol=1e-6)
+
+
+def test_classical_gs_with_bookkeeping_on_card_matches_cpu(
+        cuda, tmp_path, monkeypatch):
+    """`--method gs`: the clouds, overlap and errors in torch on the card,
+    the registration in the native library; the same pairs recorded with
+    the same poses as with the bookkeeping on the CPU."""
+    from relativepose_tpu_torch.cli import evaluate
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        (tmp_path / dev).mkdir()
+        monkeypatch.chdir(tmp_path / dev)
+        runs[dev] = evaluate.main([
+            "--dataList", "synthetic", "--synthetic_family", "suncg",
+            "--method", "gs", "--maxIter", "4", "--rm", "--exp", "gs",
+            "--device", dev]).error_stats
+    assert len(runs["cuda"]) >= 2
+    assert [r["pair_idx"] for r in runs["cuda"]] == \
+        [r["pair_idx"] for r in runs["cpu"]]
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        np.testing.assert_allclose(b["T_hat"], a["T_hat"], atol=1e-4)
+        for k in ("overlap", "cam_dist", "pc_dist", "pc_nn"):
+            np.testing.assert_allclose(float(b[k]), float(a[k]), atol=1e-5,
+                                       err_msg=k)
+        for k in ("err_ad", "err_t"):
+            np.testing.assert_allclose(float(b[k]), float(a[k]), atol=1e-3,
+                                       err_msg=k)
+
+
+def test_one_rank_nccl_step_matches_plain_step(cuda, tmp_path):
+    """`train/mesh.py` on a 1-rank NCCL group (batch statistics and loss
+    sums through NCCL, DDP over the group) against the step without a
+    group, f32, the small dry-run step: the loss to 1e-6 relative, the
+    parameters as the training steps above, and the sharded evaluation's
+    poses to 1e-5."""
+    from relativepose_tpu_torch.train import mesh_dryrun
+    ref = mesh_dryrun.step(device="cuda")
+    got = mesh_dryrun.one_rank_step(str(tmp_path), "cuda")
+    assert abs(got[0]["loss"] - ref[0]["loss"]) <= 1e-6 * ref[0]["loss"]
+    diff = np.concatenate([np.abs(got[1][k] - ref[1][k]).ravel()
+                           for k in ref[1]])
+    assert np.mean(diff <= 1e-6) >= 0.999 and diff.max() <= 2 * 2e-4
+    np.testing.assert_allclose(got[2], ref[2], atol=1e-5)

@@ -156,9 +156,14 @@ def test_jax_checkpoint_trains_port_completion(workdir, rng):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--num_devices", "2"], ["--model_parallel", "2"],
-    ["--torch_feat_ckpt", "x.pth.tar"], ["--feat_ckpt", "params_dir"],
+    ["--feat_ckpt", "params_dir"],
+    ["--feat_ckpt", "params_dir", "--num_devices", "2"],
+    ["--feat_ckpt", "experiments/exp_feat/params"],
+    ["--feat_ckpt", "params_dir", "--num_devices", "2", "--model_parallel",
+     "2"],
 ])
 def test_unported_options_raise(workdir, extra):
-    with pytest.raises(NotImplementedError):
+    """Orbax checkpoint directories are the one input the port does not
+    read; a multi-rank run refuses one before any rank starts."""
+    with pytest.raises(NotImplementedError, match="save_params_npz"):
         train_completion.main(small("--exp", "unported", "--rm", *extra))
