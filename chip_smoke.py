@@ -88,13 +88,21 @@ Phases, each ending with one line that gives its own seconds:
      `train/mesh.py` on a 1-rank NCCL group against the same step without
      a group (one card cannot show a collective across cards; the CPU
      tests with gloo hold 2 and 2 x 2 ranks to the 1-rank step);
+  8. the JAX package's orbax checkpoints, read without JAX: the zstd
+     decoder built with g++; the committed fixture `tests/data/
+     orbax_scnet/` (a seeded SCNet at ngf 2, written by the JAX package's
+     CheckpointManager) read with every leaf's sha256 as
+     `tests/data/orbax_scnet.json` records it; the decoder's MB/s over the
+     fixture's chunks, repeated to 200 MB; `cli.evaluate --comp_ckpt
+     tests/data/orbax_scnet --ngf 2` on 4 suncg pairs in one call: K1
+     launched 3 times, finite orthonormal poses;
   5f. last, one call of 5b's and one of 5c's first run (K1) and one
      completion step of 6a under torch.profiler (time per stage, the
      device's idle share, the costliest kernels).
 
 Every pipeline phase sets the launch counts to 0 just before it drives the
 pipeline and reads them just after; a kernel's `launches` in the JSON line
-is the sum over phases 5b-5e, 6c's evaluation call, 6d and 7b (the
+is the sum over phases 5b-5e, 6c's evaluation call, 6d, 7b and 8 (the
 comparisons of a kernel with its plain version are not counted).  The
 training phases 6a and 6b and 6c's fine-tuning steps reach neither
 kernel; their counts are printed.
@@ -1286,6 +1294,102 @@ def phase_torch_checkpoint(card, work, launches):
             os.environ["RPTPU_SYNTH_CACHE"] = cache
 
 
+def leaf_digests(tree, prefix=()):
+    """{'/'-joined path: {shape, dtype, sha256}} of a nested dict of
+    arrays, as `tests/orbax_fixture.py` records the fixture's leaves."""
+    import hashlib
+    import numpy as np
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (str(k),)
+        if isinstance(v, dict):
+            out.update(leaf_digests(v, path))
+        else:
+            a = np.ascontiguousarray(np.asarray(v))
+            out["/".join(path)] = {
+                "shape": list(a.shape), "dtype": a.dtype.str,
+                "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    return out
+
+
+def phase_orbax(card, launches):
+    """8: the JAX package's orbax checkpoints without JAX: the zstd
+    decoder's g++ build; the committed fixture (a seeded SCNet at ngf 2
+    that the JAX package's CheckpointManager wrote) read with every leaf's
+    sha256 as recorded; the decoder's rate over the fixture's chunks; then
+    `cli.evaluate --comp_ckpt <the fixture>` on 4 suncg pairs in one call:
+    K1 launched 3 times, finite orthonormal poses."""
+    import numpy as np
+    from relativepose_tpu_torch.cli import evaluate
+    from relativepose_tpu_torch.native import zstd
+    from relativepose_tpu_torch.ops import kernels
+    from relativepose_tpu_torch.utils.checkpoint import restore_params
+    from relativepose_tpu_torch.utils.ocdbt import OcdbtReader
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    fixture = os.path.join(data, "orbax_scnet")
+    with open(os.path.join(data, "orbax_scnet.json")) as f:
+        record = json.load(f)
+    zstd.build()
+    print("zstd decoder: " + (f"g++ build {zstd.build_seconds:.1f} s"
+                              if zstd.build_seconds else "cached build"),
+          flush=True)
+    t = time.perf_counter()
+    tree = restore_params(fixture)
+    read_ms = (time.perf_counter() - t) * 1e3
+    got = leaf_digests(tree)
+    bad = sorted(k for k in set(got) | set(record["leaves"])
+                 if got.get(k) != record["leaves"].get(k))
+    if bad:
+        raise AssertionError(f"orbax fixture: leaves differ from "
+                             f"orbax_scnet.json: {bad[:5]}")
+    print(f"orbax fixture: {len(got)} leaves read in {read_ms:.1f} ms, "
+          "every sha256 as recorded", flush=True)
+    kv = OcdbtReader(os.path.join(fixture, "checkpoint_0001"))
+    chunks = []
+    for key in kv.keys():
+        if not key.endswith("/.zarray"):
+            frame = kv.read(key)
+            chunks.append((frame, np.empty(zstd.decompress(frame).size,
+                                           np.uint8)))
+    per_pass = sum(out.nbytes for _, out in chunks)
+    passes = -(-200_000_000 // per_pass)
+    t = time.perf_counter()
+    for _ in range(passes):
+        for frame, out in chunks:
+            zstd.decompress_into(frame, out)
+    secs = time.perf_counter() - t
+    mb = passes * per_pass / 1e6
+    print(f"zstd decode: {mb:.1f} MB ({len(chunks)} chunks, "
+          f"{sum(len(f) for f, _ in chunks)} bytes compressed, "
+          f"{per_pass} decoded, x {passes}) in {secs:.3f} s: "
+          f"{mb / secs:.1f} MB/s on the host of {card}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_orbax_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        runner = evaluate.main([
+            "--dataList", "synthetic", "--synthetic_family", "suncg",
+            "--method", "ours", "--maxIter", "4", "--batch_pairs", "4",
+            "--comp_ckpt", fixture, "--ngf", str(record["ngf"]), "--rm",
+            "--exp", "orbax_ck", "--device", "cuda"])
+        counts = read_counts()
+        add_counts(launches, counts)
+        check_pose_rows("evaluate --comp_ckpt <orbax>", runner.error_stats)
+        if counts.get(kernels.PAIR_WEIGHT.name) != 3:
+            raise AssertionError(f"evaluate --comp_ckpt <orbax>: launches "
+                                 f"{counts}, expected 3 of K1")
+        print(f"evaluate --comp_ckpt {os.path.relpath(fixture, cwd)} "
+              f"--ngf {record['ngf']}: {len(runner.error_stats)} pairs in "
+              f"{time.perf_counter() - t:.1f} s, finite orthonormal poses; "
+              f"launches {counts}; on {card}", flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_mesh(card):
     """7c: one completion step at full width (ngf 64, batch 8, bf16)
     through train/mesh.py on a 1-rank NCCL group, against the same step
@@ -1441,6 +1545,7 @@ def main():
         ph.run("7b torch checkpoints", phase_torch_checkpoint, card, work,
                launches)
         ph.run("7c mesh", phase_mesh, card)
+        ph.run("8 orbax checkpoints", phase_orbax, card, launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # last: the profiler can leave the host slower for later calls

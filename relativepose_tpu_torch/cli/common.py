@@ -142,7 +142,7 @@ def run_ranks(args, rank_fn):
     from relativepose_tpu_torch.train import mesh
     from relativepose_tpu_torch.utils.checkpoint import (
         CheckpointManager,
-        require_npz,
+        require_checkpoint,
     )
     from relativepose_tpu_torch.utils.experiment import ExperimentDirs
 
@@ -155,7 +155,7 @@ def run_ranks(args, rank_fn):
         raise ValueError(f"--batch_size {args.batch_size} does not split "
                          f"over {data} data-parallel ranks")
     if getattr(args, "feat_ckpt", None):
-        require_npz(args.feat_ckpt)   # before any rank starts
+        require_checkpoint(args.feat_ckpt)   # before any rank starts
     dirs = ExperimentDirs(args.exp, rm=args.rm, resume=args.resume)
     if world == 1:
         return rank_fn(args, dirs)

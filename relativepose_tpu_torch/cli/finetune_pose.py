@@ -9,8 +9,9 @@ The flags of `relativepose_tpu.cli.finetune_pose`, plus `--device`:
 On the CPU at a small width: `--device cpu --bf16 0 --ngf 8` and a
 checkpoint of that width.  Writes `checkpoint_%04d.npz` (SCNet's tree, the
 format `cli.evaluate --comp_ckpt` reads) and its `.resume.npz` to
-experiments/exp_<exp>/params.  Orbax checkpoint directories are not read
-(`utils/checkpoint.py::restore_params`).
+experiments/exp_<exp>/params.  `--comp_ckpt` also takes an orbax
+checkpoint manager directory of the JAX package's completion CLI (its
+newest `checkpoint_%04d/`, `utils/checkpoint.py::restore_params`).
 """
 
 from __future__ import annotations
@@ -47,7 +48,9 @@ def _parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--exp", type=str, required=True)
     p.add_argument("--comp_ckpt", type=str, required=True,
-                   help="completion weights: an npz weight file")
+                   help="completion weights: an npz weight file, or an "
+                        "orbax checkpoint manager directory (its newest "
+                        "checkpoint_<step>/)")
     p.add_argument("--synthetic_family", type=str, default="suncg")
     p.add_argument("--synthetic_n", type=int, default=1024)
     p.add_argument("--view_detail_jitter", type=int, default=1)

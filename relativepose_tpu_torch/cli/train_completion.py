@@ -5,13 +5,15 @@
         --dataList synthetic --synthetic_family suncg --featurelearning 1 \
         --feat_ckpt experiments/exp_feat_suncg/params/checkpoint_0001.npz
 
-`--feat_ckpt` loads the frozen feature net from an npz weight file with a
-`net_f` tree: a checkpoint of the feature CLI of either package.
+`--feat_ckpt` loads the frozen feature net from a `net_f` tree: an npz
+weight file of the feature CLI of either package, or the orbax checkpoint
+manager directory of the JAX package's feature CLI (its newest
+`checkpoint_%04d/`, `utils/checkpoint.py::restore_params`).
 `--torch_feat_ckpt` loads it from the original repository's state dict
 (`utils/torch_import.py`), with its BatchNorm running statistics folded
-into a frozen affine.  Orbax checkpoint directories are not read
-(`utils/checkpoint.py::restore_params`).  `--num_devices` and
-`--model_parallel` as in `cli/train_feature.py`.
+into a frozen affine.  `--resume` continues a run of either package, as
+`cli/train_feature.py` says.  `--num_devices` and `--model_parallel` as in
+`cli/train_feature.py`.
 """
 
 from __future__ import annotations
@@ -85,7 +87,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     train_feature.add_driver_args(p)
     p.add_argument("--feat_ckpt", type=str, default=None,
-                   help="frozen feature net: an npz weight file")
+                   help="frozen feature net: an npz weight file, or an "
+                        "orbax checkpoint manager directory (its newest "
+                        "checkpoint_<step>/)")
     p.add_argument("--torch_feat_ckpt", type=str, default=None,
                    help="the original repository's netF state dict "
                         "(.pth.tar), converted on load "

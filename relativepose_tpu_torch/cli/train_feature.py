@@ -9,7 +9,11 @@ Real datasets: --dataList suncgv3 --listPath data/dataList/suncgv3.npy in
 the original on-disk layout.  `--device cpu` runs on the CPU.  Each
 checkpoint is `experiments/exp_<name>/params/checkpoint_%04d.npz`, in
 the JAX package's npz format (`utils/checkpoint.py`); scalars go to
-`experiments/exp_<name>/tensorboard/scalars.jsonl`.
+`experiments/exp_<name>/tensorboard/scalars.jsonl`.  `--resume` continues
+from the newest checkpoint in that directory: the port's npz, or an orbax
+`checkpoint_%04d/` that the JAX package's CLI wrote there (a TPU run
+resumes on the card: parameters and Adam moments as saved, the epoch
+counter from the checkpoint's number; `train/state.py::load_flax_state`).
 
 `--num_devices N [--model_parallel M]` trains on N ranks, one card each (or
 N CPU processes with `--device cpu`): one global step of `--batch_size`

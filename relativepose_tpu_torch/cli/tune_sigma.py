@@ -3,9 +3,9 @@
 
 Caches the matching primitives of every recurrence level by running the
 recurrent pipeline over the pairs (oracle completion, or SCNet with
-`--comp_ckpt` npz weights), then fits the 4 matching sigmas per level and
-writes a sigma table in the format of `data/params/final_param_*_rlevel_3
-.txt`:
+`--comp_ckpt`: npz weights or an orbax checkpoint manager directory), then
+fits the 4 matching sigmas per level and writes a sigma table in the
+format of `data/params/final_param_*_rlevel_3.txt`:
     python -m relativepose_tpu_torch.cli.tune_sigma --dataList synthetic \\
         --synthetic_family suncg --num_pairs 20 --rlevel 3 \\
         --out experiments/sigma_suncg.txt
@@ -49,7 +49,8 @@ def _parse_args(argv=None):
     p.add_argument("--outputType", type=str, default="rgbdnsf")
     p.add_argument("--featureDim", type=int, default=32)
     p.add_argument("--comp_ckpt", type=str, default=None,
-                   help="completion weights: an npz weight file (oracle "
+                   help="completion weights: an npz weight file or an "
+                        "orbax checkpoint manager directory (oracle "
                         "completion without one)")
     p.add_argument("--ngf", type=int, default=64,
                    help="SCNet width (must match the checkpoint)")

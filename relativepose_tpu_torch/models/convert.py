@@ -97,7 +97,7 @@ def _rename(key, rules, src, dst, sep_src, sep_dst):
     raise KeyError(f"unexpected parameter {key!r}")
 
 
-def _to_torch(params, rules):
+def _to_torch(params, rules, offset: bool = True):
     sd = {}
     for key, arr in flatten_params(params).items():
         name, kind, leaf = _rename(key, rules, 1, 0, "/", ".")
@@ -105,7 +105,7 @@ def _to_torch(params, rules):
         if leaf == "kernel":
             arr = arr[::-1, ::-1].transpose(2, 3, 0, 1) if kind == "deconv" \
                 else arr.transpose(3, 2, 0, 1)
-        elif leaf == "scale":
+        elif leaf == "scale" and offset:
             arr = arr + 1.0
         sd[name] = torch.from_numpy(np.array(arr, order="C"))
     return sd
@@ -121,6 +121,13 @@ def load_flax_params(model, params):
     SegmentationHead `model` (strict); returns the model."""
     model.load_state_dict(_to_torch(params, _rules(model)), strict=True)
     return model
+
+
+def torch_arrays(model, params, moments: bool = False):
+    """A Flax tree of `model`'s parameters -> {torch name: f32 tensor}, by
+    the rules and layouts above; with `moments`, a tree of Adam moments of
+    them (BatchNorm scales carry no offset there)."""
+    return _to_torch(params, _rules(model), offset=not moments)
 
 
 def _rules(model):

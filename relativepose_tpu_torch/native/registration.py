@@ -5,73 +5,41 @@ functions and the same numpy-in, numpy-out contract: every registration
 returns a 4x4 transform mapping source points into the target frame.
 
 The library is built from `cpp/registration.cpp` with `g++` at first use,
-with the flags of `cpp/Makefile`, into `relativepose_tpu_torch/build/`.
-The name of the built library carries a hash of the source, the flags and
-the processor (`-march=native` builds for the processor it runs on), so
-an edited source or another machine gets a build of its own.  The build
-writes a temporary file and renames it into place, so processes that
-build at the same time each get a whole library.  The
-`cpp/librpregistration.so` in the repository is never loaded here: it is
-bound to the processor it was built on.
+with the flags of `cpp/Makefile`, into `relativepose_tpu_torch/build/`
+(`native/build.py`: the name hashes the source, the flags and the
+processor).  The `cpp/librpregistration.so` in the repository is never
+loaded here: it is bound to the processor it was built on.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import platform
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG.parent / "cpp" / "registration.cpp"
-BUILD_DIR = _PKG / "build"
-# cpp/Makefile's CXXFLAGS, plus -shared as its rule adds
-CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
+from relativepose_tpu_torch.native import build as native_build
+
+SOURCE = native_build.PKG.parent / "cpp" / "registration.cpp"
+BUILD_DIR = native_build.BUILD_DIR
+CXXFLAGS = native_build.CXXFLAGS
 
 _LIB = None
 build_seconds = None   # seconds of this process's build, None if none ran
 
 
-def _processor() -> bytes:
-    """The processor's model and feature flags (what -march=native reads)."""
-    try:
-        with open("/proc/cpuinfo") as f:
-            lines = [ln for ln in f if ln.startswith(("model name", "flags"))]
-        return "".join(sorted(set(lines))).encode()
-    except OSError:
-        return platform.processor().encode()
-
-
 def lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXXFLAGS).encode()
-                            + _processor()).hexdigest()[:16]
-    return BUILD_DIR / f"librpregistration-{digest}.so"
+    return native_build.lib_path(SOURCE, "rpregistration", CXXFLAGS,
+                                 BUILD_DIR)
 
 
 def build() -> Path:
     """Build the library unless it is built; returns its path."""
     global build_seconds
-    out = lib_path()
-    if out.exists():
-        return out
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("g++ not found: set CXX or put g++ on PATH")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([cxx, *CXXFLAGS, "-shared", "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
+    out, seconds = native_build.build(SOURCE, "rpregistration", CXXFLAGS,
+                                      BUILD_DIR)
+    if seconds is not None:
+        build_seconds = seconds
     return out
 
 

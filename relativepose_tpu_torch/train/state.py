@@ -9,6 +9,12 @@ optax's.
 `utils/checkpoint.py::save_params_npz` writes in the JAX package's npz
 format; `resume_arrays` / `load_resume_arrays` carry everything a resumed
 run needs (f32 parameters, Adam moments and steps) under torch names.
+`load_flax_state` resumes from a JAX trainer state instead (an orbax
+checkpoint of the JAX package's training CLIs, `utils/orbax_read.py`):
+`flax_resume_arrays` maps its params and optax Adam moments onto those
+names.  `torch.optim.Adam` then steps on; its bias corrections, taken in
+double precision, differ from optax's f32 ones by about 6e-6 of an update
+(see `OptaxAdam`), so the resumed run follows the JAX run within that.
 """
 
 from __future__ import annotations
@@ -94,6 +100,54 @@ class TrainState:
                     self.optimizer.state[p] = st
         if "step" in arrays:
             self.step = int(arrays["step"])
+
+    def load_flax_state(self, tree: dict):
+        """Resume from a JAX trainer state (`flax_resume_arrays`), a partial
+        restore as `load_resume_arrays`; a completion state's
+        `net_f_params` go into the frozen feature net, as the JAX
+        package's restore takes them."""
+        self.load_resume_arrays(flax_resume_arrays(self, tree))
+        net_f = self.frozen.get("net_f")
+        if net_f is not None and tree.get("net_f_params") is not None:
+            arrays = convert.torch_arrays(net_f, tree["net_f_params"])
+            with torch.no_grad():
+                for k, p in net_f.named_parameters():
+                    a = arrays.get(k)
+                    if a is not None and tuple(a.shape) == tuple(p.shape):
+                        p.copy_(a)
+
+
+def flax_resume_arrays(state: TrainState, tree: dict) -> dict:
+    """A JAX trainer state -> `TrainState.resume_arrays` names for `state`.
+
+    `tree` is what the JAX package's training CLIs save
+    (`relativepose_tpu/train/feature.py::init_state`,
+    `train/completion.py::init_state`) and orbax restores: {'params',
+    'opt_state': [{'count', 'mu', 'nu'}, None], 'step'}, the params keyed by
+    model name, or the root model's tree itself (SCNet's, for completion).
+    params become param/<name>, mu exp_avg/<name>, nu exp_avg_sq/<name>
+    (`models/convert.py`'s names and layouts), count adam_step/<name>."""
+    opt = tree.get("opt_state")
+    adam = opt[0] if isinstance(opt, (list, tuple)) and opt else None
+    groups = [("param", tree.get("params"), False)]
+    if adam is not None:
+        groups += [("exp_avg", adam["mu"], True),
+                   ("exp_avg_sq", adam["nu"], True)]
+    out = {}
+    if "step" in tree:
+        out["step"] = np.asarray(tree["step"], np.int64)
+    for name, model in state.models.items():
+        for prefix, src, moments in groups:
+            sub = src if name == state.root else (src or {}).get(name)
+            if sub is None:
+                continue
+            for k, t in convert.torch_arrays(model, sub, moments).items():
+                out[f"{prefix}/{name}.{k}"] = t.numpy()
+        if adam is not None:
+            count = np.asarray(adam["count"], np.float32)
+            for k, _ in model.named_parameters():
+                out[f"adam_step/{name}.{k}"] = count
+    return out
 
 
 class OptaxAdam(torch.optim.Optimizer):

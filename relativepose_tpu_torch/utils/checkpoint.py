@@ -1,4 +1,5 @@
-"""npz weight files and numbered training checkpoints.
+"""npz weight files, numbered training checkpoints, and the JAX package's
+orbax checkpoint directories, read without JAX.
 
 `save_params_npz` / `load_params_npz` are the JAX package's npz format
 (`relativepose_tpu/utils/checkpoint.py`): one compressed npz per parameter
@@ -7,11 +8,18 @@ tree, '/'-joined keys, floats in f16 by default, the format of the shipped
 the other writes; `models/convert.py` maps the tree to and from the port's
 modules.
 
+`restore_params` also takes an orbax checkpoint manager directory (the
+JAX training CLIs' `experiments/exp_<name>/params`): its newest
+`checkpoint_%04d/` is read by `utils/orbax_read.py`, bit for bit.
+
 `CheckpointManager` keeps the JAX package's numbered `checkpoint_%04d`,
 keep-N and partial-restore semantics without orbax (which needs JAX):
 each save writes `checkpoint_%04d.npz`, the trained networks' parameter
 tree in the npz format above, and beside it `checkpoint_%04d.resume.npz`,
 everything a resumed run needs in f32 (`train/state.py`), uncompressed.
+It also reads the orbax `checkpoint_%04d/` directories that the JAX
+package's manager writes into the same directory, so that a TPU run
+resumes here; it writes npz only.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import os
 import re
 
 import numpy as np
+
+from relativepose_tpu_torch.utils import orbax_read
 
 
 def save_params_npz(path: str, params, dtype=np.float16) -> str:
@@ -59,30 +69,52 @@ def load_params_npz(path: str, dtype=np.float32):
     return out
 
 
+def orbax_steps(directory: str) -> list:
+    """The steps of the orbax `checkpoint_%04d/` directories in a manager
+    directory (the JAX package's `CheckpointManager`), sorted."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(
+        re.compile(r"checkpoint_(\d+)").fullmatch, os.listdir(directory))
+        if m and orbax_read.is_checkpoint(os.path.join(directory,
+                                                       m.group(0))))
+
+
 def restore_params(path: str):
-    """An npz weight file -> {'params': tree}, as the JAX package's
-    `restore_params` returns for npz.
+    """An npz weight file -> {'params': tree}; an orbax checkpoint manager
+    directory -> the state dict saved in its newest checkpoint, whose
+    ['params'] is the parameter tree; as the JAX package's
+    `restore_params` returns them.  Raises FileNotFoundError for a
+    directory that holds no checkpoint."""
+    if path.endswith(".npz"):
+        return {"params": load_params_npz(path)}
+    steps = orbax_steps(path)
+    if not steps:
+        raise FileNotFoundError(f"{path}: no orbax checkpoint_<step> "
+                                "directory")
+    return orbax_read.restore(os.path.join(path,
+                                           f"checkpoint_{steps[-1]:04d}"))
 
-    Orbax checkpoint directories are not read: orbax keeps its arrays
-    through tensorstore, which this package does not depend on, and npz
-    carries the same trees.  Export one where JAX is installed with
-    `relativepose_tpu.utils.checkpoint.save_params_npz`."""
-    require_npz(path)
-    return {"params": load_params_npz(path)}
 
-
-def require_npz(path: str):
-    """Raise unless `path` names an npz weight file (`restore_params`)."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not read (orbax "
-            "keeps arrays through tensorstore, which this package does not "
-            "depend on).  Export the tree to npz where JAX is installed, "
-            "with relativepose_tpu.utils.checkpoint.save_params_npz, and "
-            "pass the npz file")
+def require_checkpoint(path: str):
+    """Raise unless `path` names an npz weight file or an orbax manager
+    directory that holds a checkpoint (what `restore_params` reads)."""
+    if path.endswith(".npz"):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(path)
+    elif not orbax_steps(path):
+        raise FileNotFoundError(
+            f"{path}: neither an npz weight file nor an orbax checkpoint "
+            "manager directory with a checkpoint_<step>/ in it")
 
 
 class CheckpointManager:
+    """Numbered checkpoints in `directory`: the port's npz pairs, and the
+    JAX package's orbax `checkpoint_%04d/` directories, which it reads.
+    The newest step of either format is restored; on a tie the port's
+    npz wins.  keep-N counts and deletes the port's own npz checkpoints
+    only: it never deletes a directory that the port did not write."""
+
     def __init__(self, directory: str, keep: int = 3):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
@@ -92,7 +124,7 @@ class CheckpointManager:
         tail = ".resume.npz" if resume else ".npz"
         return os.path.join(self.directory, f"checkpoint_{step:04d}{tail}")
 
-    def all_steps(self):
+    def npz_steps(self):
         steps = []
         for p in os.listdir(self.directory):
             m = re.fullmatch(r"checkpoint_(\d+)\.npz", p)
@@ -100,37 +132,60 @@ class CheckpointManager:
                 steps.append(int(m.group(1)))
         return sorted(steps)
 
+    def all_steps(self):
+        """Every step, npz or orbax, sorted."""
+        return sorted(set(self.npz_steps()) | set(orbax_steps(self.directory)))
+
     def save(self, step: int, state) -> str:
         """Write `state`'s (a `train.state.TrainState`) parameter tree and
-        resume arrays; keep the newest `keep` checkpoints."""
+        resume arrays; keep the newest `keep` npz checkpoints."""
         path = save_params_npz(self.path(step), state.params_tree())
         # uncompressed: f32 weights and Adam moments barely compress, and
         # zlib over SCNet's 146 M values was most of a short training
         # run's time (chip_smoke.py 6b, 7b)
         np.savez(self.path(step, resume=True), **state.resume_arrays())
-        steps = self.all_steps()
+        steps = self.npz_steps()
         for s in steps[: max(0, len(steps) - self.keep)]:
             for resume in (False, True):
                 if os.path.exists(self.path(s, resume)):
                     os.remove(self.path(s, resume))
         return path
 
-    def restore(self, step: int = None):
-        """The resume arrays of `step` (default the newest) as a dict, or
-        None when there is no checkpoint."""
+    def _pick(self, step):
+        """(step, whether it is an orbax directory) of `step` (default the
+        newest), or None when there is no checkpoint."""
         steps = self.all_steps()
         if not steps:
             return None
         step = steps[-1] if step is None else step
+        return step, step not in self.npz_steps()
+
+    def restore(self, step: int = None):
+        """`step`'s checkpoint (default the newest): the resume arrays of an
+        npz checkpoint as a dict, or the state tree of an orbax one (what
+        the JAX package's manager restores); None when there is none."""
+        picked = self._pick(step)
+        if picked is None:
+            return None
+        step, orbax = picked
+        if orbax:
+            return orbax_read.restore(
+                os.path.join(self.directory, f"checkpoint_{step:04d}"))
         with np.load(self.path(step, resume=True)) as z:
             return {k: z[k] for k in z.files}
 
     def restore_into(self, state, step: int = None):
         """Partial restore: entries present in both the checkpoint and the
-        state, with equal shapes, are taken from the checkpoint.  Returns
-        (state, whether a checkpoint was found)."""
-        arrays = self.restore(step)
-        if arrays is None:
+        state, with equal shapes, are taken from the checkpoint; a JAX
+        trainer state is mapped onto the port's names first
+        (`TrainState.load_flax_state`).  Returns (state, whether a
+        checkpoint was found)."""
+        picked = self._pick(step)
+        if picked is None:
             return state, False
-        state.load_resume_arrays(arrays)
+        tree = self.restore(picked[0])
+        if picked[1]:
+            state.load_flax_state(tree)
+        else:
+            state.load_resume_arrays(tree)
         return state, True

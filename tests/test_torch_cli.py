@@ -117,16 +117,17 @@ def test_flags_match_jax():
     assert b["maskMethod"] == "kinect" and b["device"] == "cuda"
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--comp_ckpt", "experiments/exp_comp/params"], "orbax"),
-    (["--comp_ckpt", "params_dir", "--method", "ours_nr"], "tensorstore"),
-    (["--comp_ckpt", "params_dir", "--method", "ours_nc"],
-     "save_params_npz")])
-def test_unported_options_raise(tmp_path, monkeypatch, extra, match):
-    """Orbax checkpoint directories are the one input the port does not
-    read; the error gives the reason and the npz route."""
+@pytest.mark.parametrize("extra", [
+    ["--comp_ckpt", "experiments/exp_comp/params"],
+    ["--comp_ckpt", "params_dir", "--method", "ours_nr"],
+    ["--comp_ckpt", "params_dir", "--method", "ours_nc"]],
+    ids=["extra0-orbax", "extra1-tensorstore", "extra2-save_params_npz"])
+def test_unported_options_raise(tmp_path, monkeypatch, extra):
+    """An orbax checkpoint manager directory that holds no checkpoint
+    raises FileNotFoundError, as the JAX package's `restore_params` does
+    (reading one: tests/test_torch_orbax.py)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(FileNotFoundError, match="no orbax checkpoint"):
         tcli.main(cli_args("suncg", "x", "--device", "cpu", *extra))
 
 

@@ -75,7 +75,9 @@ def test_cli_runs_and_writes_an_npz_both_packages_read(tmp_path,
 
 
 def test_orbax_directory_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="save_params_npz"):
+    """A manager directory with no checkpoint in it (reading one:
+    tests/test_torch_orbax.py)."""
+    with pytest.raises(FileNotFoundError, match="no orbax checkpoint"):
         tcli.main(["--exp", "x", "--rm", "--comp_ckpt", str(tmp_path),
                    "--device", "cpu"])
 

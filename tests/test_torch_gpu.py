@@ -479,3 +479,30 @@ def test_one_rank_nccl_step_matches_plain_step(cuda, tmp_path):
                            for k in ref[1]])
     assert np.mean(diff <= 1e-6) >= 0.999 and diff.max() <= 2 * 2e-4
     np.testing.assert_allclose(got[2], ref[2], atol=1e-5)
+
+
+def test_orbax_fixture_drives_scnet_on_card(cuda):
+    """The committed orbax fixture (written by the JAX package's orbax
+    manager) read on the card's host by the port's own zstd decoder and
+    OCDBT reader: every leaf's sha256 as recorded; the SCNet it holds
+    runs on the card with finite outputs within 1e-3 of the CPU's (f32;
+    cuDNN sums its convolutions in another order)."""
+    import json
+
+    from orbax_fixture import FIXTURE, MANIFEST, leaf_digests
+    from relativepose_tpu_torch.models import convert
+    from relativepose_tpu_torch.models.scnet import SCNet
+    from relativepose_tpu_torch.utils.checkpoint import restore_params
+
+    with open(MANIFEST) as f:
+        record = json.load(f)
+    tree = restore_params(FIXTURE)
+    assert leaf_digests(tree) == record["leaves"]
+    net = convert.load_flax_params(SCNet(ngf=record["ngf"]), tree["params"])
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        2, 160, 640, 16).astype(np.float32))
+    with torch.no_grad():
+        want = net.eval()(x)
+        got = net.to(cuda)(x.to(cuda)).cpu()
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3)

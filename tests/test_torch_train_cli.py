@@ -163,7 +163,8 @@ def test_jax_checkpoint_trains_port_completion(workdir, rng):
      "2"],
 ])
 def test_unported_options_raise(workdir, extra):
-    """Orbax checkpoint directories are the one input the port does not
-    read; a multi-rank run refuses one before any rank starts."""
-    with pytest.raises(NotImplementedError, match="save_params_npz"):
+    """A --feat_ckpt that is neither an npz file nor an orbax manager
+    directory with a checkpoint raises FileNotFoundError; a multi-rank run
+    refuses it before any rank starts."""
+    with pytest.raises(FileNotFoundError, match="neither an npz"):
         train_completion.main(small("--exp", "unported", "--rm", *extra))
