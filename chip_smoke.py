@@ -49,25 +49,31 @@ Phases, each ending with one line that gives its own seconds:
      steps on one fixed batch must leave the loss below its first value;
   6b. both training CLIs in this process at their defaults (full width,
      batch 8, bf16): `cli.train_feature` on the synthetic debug set for
-     6 s, then `cli.train_completion --featurelearning 1 --feat_ckpt`
-     the npz checkpoint the feature run just saved; each must write its
-     npz checkpoint and log only finite losses;
+     6 s, then `cli.train_completion --featurelearning 1 --feat_ckpt` the
+     params directory the feature run just wrote; each must write its
+     orbax checkpoint (the JAX trainers' state tree) and log only finite
+     losses; then the completion checkpoint restored into a full-width
+     completion state on the card, that state written again by the
+     port's manager (bytes, seconds and MB/s on the card's host) and read
+     back with every leaf's sha256 as in memory;
   6c. pose fine-tuning through the pipeline at the fine-tuning CLI's
-     defaults (SCNet from 6b's npz at ngf 64, bf16 compute with f32
-     parameters, batch 4 pairs, 2 recurrence steps with remat, the full
-     keypoint budget, irls+sm with 30 power iterations and the per-step
-     sigma table, both kernels off): first one forward+backward with
+     defaults (SCNet from 6b's params directory at ngf 64, bf16 compute
+     with f32 parameters, batch 4 pairs, 2 recurrence steps with remat,
+     the full keypoint budget, irls+sm with 30 power iterations and the
+     per-step sigma table, both kernels off): first one forward+backward with
      remat and one without on the same draws (equal losses, gradient
      norms within 1e-3, cosine >= 0.9999, remat's peak memory the lower),
      then 1 warm-up step and 1 step timed by CUDA events beside the host
      time to enqueue a step: ms per step, pairs/s, peak device memory,
      finite losses and a positive gradient norm, no kernel launched; then
      `cli.finetune_pose.main` (8 synthetic pairs, at least 4 kept by the
-     overlap filter, 1 step) whose npz, read by the evaluation CLI's
-     loader, must give finite orthonormal poses on 5b's pairs;
+     overlap filter, 1 step) whose params directory, read by the
+     evaluation CLI's loader, must give finite orthonormal poses on 5b's
+     pairs;
   6d. sigma tuning: `cli.tune_sigma.main` on 8 pairs, 3 levels, SCNet
-     from 6c's npz, first by finite differences (1 iteration; K1 in every
-     objective evaluation), then by exact-gradient Adam (1 step) on the
+     from 6c's params directory, first by finite differences (1
+     iteration; K1 in every objective evaluation), then by exact-gradient
+     Adam (1 step) on the
      same primitive cache: finite positive [3, 4] tables; the level-0
      objective with K1 within 1e-4 of the plain W build at two sigmas;
      seconds per objective evaluation (K1) and per value-and-gradient step
@@ -83,7 +89,7 @@ Phases, each ending with one line that gives its own seconds:
      within 1e-6 and drive `cli.evaluate --torch_comp_ckpt` (bf16, K1
      counted) to finite orthonormal poses; a seeded feature net written
      the same way drives `cli.train_completion --torch_feat_ckpt` for 2 s
-     to its npz;
+     to its orbax checkpoint;
   7c. one full-width completion step (ngf 64, batch 8, bf16) through
      `train/mesh.py` on a 1-rank NCCL group against the same step without
      a group (one card cannot show a collective across cards; the CPU
@@ -768,15 +774,19 @@ def phase_train_steps(card):
 
 
 def check_cli_run(name, ckpt, root_key):
-    """A training CLI's run: its npz checkpoint holds `root_key`, and every
-    scalar it logged is finite, with train and val losses among them."""
+    """A training CLI's run: its orbax checkpoint directory holds the JAX
+    trainers' state tree, whose params hold `root_key`, and every scalar
+    it logged is finite, with train and val losses among them."""
     import numpy as np
-    from relativepose_tpu_torch.utils.checkpoint import load_params_npz
-    if not os.path.exists(ckpt):
-        raise AssertionError(f"{name}: no checkpoint {ckpt}")
-    tree = load_params_npz(ckpt)
-    if root_key not in tree:
-        raise AssertionError(f"{name}: {ckpt} lacks {root_key}")
+    from relativepose_tpu_torch.utils import orbax_read
+    from relativepose_tpu_torch.utils.checkpoint import restore_params
+    if not orbax_read.is_checkpoint(ckpt):
+        raise AssertionError(f"{name}: no orbax checkpoint {ckpt}")
+    state = restore_params(os.path.dirname(ckpt))
+    tree = state["params"]
+    if root_key not in tree or not {"opt_state", "step"} <= set(state):
+        raise AssertionError(f"{name}: {ckpt} holds {sorted(state)}, "
+                             f"params {sorted(tree)[:4]}...")
     n_params = sum(int(np.prod(a.shape)) for a in _leaves(tree))
     path = os.path.join(os.path.dirname(os.path.dirname(ckpt)),
                         "tensorboard", "scalars.jsonl")
@@ -804,8 +814,9 @@ def _leaves(tree):
 
 def phase_train_clis(card, work):
     """6b: the feature CLI, then the completion CLI against the netF it
-    saved, in the directory `work`, at the CLIs' defaults.  Returns the
-    completion run's npz checkpoint."""
+    saved, in the directory `work`, at the CLIs' defaults; then the write
+    and read-back of the completion state (`check_orbax_write`).  Returns
+    the completion run's params directory."""
     from relativepose_tpu_torch.cli import train_completion, train_feature
     from relativepose_tpu_torch.ops import kernels
     cwd = os.getcwd()
@@ -826,7 +837,7 @@ def phase_train_clis(card, work):
         t = time.perf_counter()
         comp_ckpt = train_completion.main(
             ["--exp", "comp", "--featurelearning", "1", "--feat_ckpt",
-             feat_ckpt] + common)
+             os.path.dirname(feat_ckpt)] + common)
         print(f"train_completion: {time.perf_counter() - t:.1f} s on "
               f"{card}; kernel launches {read_counts()}", flush=True)
         check_cli_run("train_completion", comp_ckpt, "ConvBlock_0")
@@ -836,7 +847,80 @@ def phase_train_clis(card, work):
             os.environ.pop("RPTPU_SYNTH_CACHE", None)
         else:
             os.environ["RPTPU_SYNTH_CACHE"] = cache
-    return os.path.abspath(os.path.join(work, comp_ckpt))
+    params = os.path.dirname(comp_ckpt)
+    check_orbax_write(card, params, work)
+    return params
+
+
+def _leaf_arrays(tree, prefix=""):
+    """{'/'-joined path: array} of a nested dict of arrays."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_leaf_arrays(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _digests(tree):
+    """{key path: (dtype, sha256)} of every leaf of a state tree."""
+    import hashlib
+    import numpy as np
+    from relativepose_tpu_torch.utils.orbax_write import flatten
+    return {str([k for k, _ in keys]): leaf if isinstance(leaf, str) else (
+        np.asarray(leaf).dtype.str,
+        hashlib.sha256(np.ascontiguousarray(leaf).tobytes()).hexdigest())
+        for keys, leaf in flatten(tree)}
+
+
+def check_orbax_write(card, params, work):
+    """6b: the completion CLI's newest checkpoint restored into a
+    full-width completion state on the card (its parameters within 1e-6
+    of the checkpoint's), that state written by the port's manager, timed
+    from the card's tensors to the closed files, and read back by the
+    port's reader: every leaf's sha256 as in `flax_state()`."""
+    import numpy as np
+    import torch
+    from relativepose_tpu_torch.train import completion
+    from relativepose_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        restore_params,
+    )
+    state = completion.init_state(completion.CompletionTrainConfig(
+        dtype=torch.bfloat16), "cuda", seed=1)
+    state, ok = CheckpointManager(params).restore_into(state)
+    want = _leaf_arrays(state.flax_state()["params"])
+    saved = _leaf_arrays(restore_params(params)["params"])
+    if not ok or want.keys() != saved.keys():
+        raise AssertionError("orbax: the completion checkpoint did not "
+                             "restore into a full-width state")
+    err = max(float(np.abs(want[k] - saved[k]).max()) for k in want)
+    if err > 1e-6:
+        raise AssertionError(f"orbax: restored parameters off by {err}")
+    out = os.path.join(work, "orbax_write")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = CheckpointManager(out).save(state.step, state)
+    secs = time.perf_counter() - t
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+    t = time.perf_counter()
+    back = restore_params(out)
+    read_s = time.perf_counter() - t
+    got, ref = _digests(back), _digests(state.flax_state())
+    bad = sorted(k for k in set(got) | set(ref) if got.get(k) != ref.get(k))
+    if bad:
+        raise AssertionError(f"orbax: {len(bad)} leaves read back differ "
+                             f"from the state: {bad[:4]}")
+    print(f"orbax write of the full-width completion state (SCNet params, "
+          f"Adam mu and nu, netF; {len(ref)} leaves, step {state.step}): "
+          f"{size} bytes in {secs:.3f} s, {size / secs / 1e6:.1f} MB/s, "
+          f"from the card's tensors to closed files; read back by the "
+          f"port's reader in {read_s:.3f} s, every leaf's sha256 as in "
+          f"memory; restored parameters within {err:.3g} of the CLI's "
+          f"checkpoint; on the host of {card}", flush=True)
 
 
 FT_B = 4            # pairs per fine-tuning step, the CLI's default
@@ -845,10 +929,11 @@ SIGMA0 = (0.2615, 0.2615, 0.04, 0.01)
 
 
 def phase_finetune(card, comp_ckpt, data, work, launches):
-    """6c: the fine-tuning step at the CLI's defaults (SCNet from 6b's npz,
-    bf16 compute, batch 4, remat) timed, against remat=False on the same
-    draws, then `cli.finetune_pose.main`, whose npz must drive the
-    evaluation pipeline.  Returns that npz."""
+    """6c: the fine-tuning step at the CLI's defaults (SCNet from 6b's
+    params directory `comp_ckpt`, bf16 compute, batch 4, remat) timed,
+    against remat=False on the same draws, then `cli.finetune_pose.main`,
+    whose checkpoint must drive the evaluation pipeline.  Returns its
+    params directory."""
     import dataclasses
     import argparse
     import re
@@ -867,7 +952,7 @@ def phase_finetune(card, comp_ckpt, data, work, launches):
     from relativepose_tpu_torch.ops import kernels
     from relativepose_tpu_torch.pipeline import recurrent
     from relativepose_tpu_torch.train import finetune_pose as ft
-    from relativepose_tpu_torch.utils.checkpoint import load_params_npz
+    from relativepose_tpu_torch.utils.checkpoint import restore_params
 
     # the fine-tuning CLI's pipeline: both kernels off (no backward)
     cfg = dataclasses.replace(
@@ -879,7 +964,7 @@ def phase_finetune(card, comp_ckpt, data, work, launches):
         alter_steps=FT_STEPS)
     ft_cfg = ft.PoseFinetuneConfig(dtype=torch.bfloat16)
     net = SCNet(snumclass=cfg.snumclass, ngf=64, dtype=torch.bfloat16)
-    convert.load_flax_params(net, load_params_npz(comp_ckpt))
+    convert.load_flax_params(net, restore_params(comp_ckpt)["params"])
     state = ft.init_state(net.cuda(), ft_cfg)
     store = DeviceStore(dsets.SyntheticPairs("suncg", n=2 * FT_B, seed=0,
                                              view_detail_jitter=True),
@@ -966,10 +1051,10 @@ def phase_finetune(card, comp_ckpt, data, work, launches):
         t = time.perf_counter()
         # 1 step on 8 pairs (not 3 on 32): 6c and 6d together get at
         # most 180 s
-        ckpt = ft_cli.main(["--exp", "ft", "--rm", "--comp_ckpt", comp_ckpt,
-                            "--synthetic_n", "8", "--steps", "1",
-                            "--batch_pairs", str(FT_B), "--log_every", "1",
-                            "--save_every", "1", "--device", "cuda"])
+        ckpt = os.path.dirname(ft_cli.main([
+            "--exp", "ft", "--rm", "--comp_ckpt", comp_ckpt, "--synthetic_n",
+            "8", "--steps", "1", "--batch_pairs", str(FT_B), "--log_every",
+            "1", "--save_every", "1", "--device", "cuda"]))
         secs = time.perf_counter() - t
         with open(os.path.join("experiments", "exp_ft", "exp_ft.log")) as f:
             log = f.read()
@@ -998,7 +1083,7 @@ def phase_finetune(card, comp_ckpt, data, work, launches):
     counts = read_counts()
     add_counts(launches, counts)
     check_poses(T)
-    print(f"the fine-tuned npz in the evaluation pipeline: finite "
+    print(f"the fine-tuned checkpoint in the evaluation pipeline: finite "
           f"orthonormal poses of {B} pairs, launches {counts}", flush=True)
     return ckpt
 
@@ -1229,13 +1314,13 @@ def phase_torch_checkpoint(card, work, launches):
     and feature net: the import gives back every SCNet parameter, the
     evaluation CLI runs on the SCNet checkpoint and the completion CLI
     trains against the feature net's."""
-    import numpy as np
     import torch
     from relativepose_tpu_torch.cli import evaluate, train_completion
     from relativepose_tpu_torch.models.resnet import Resnet18_8s
     from relativepose_tpu_torch.models.scnet import SCNet
     from relativepose_tpu_torch.ops import kernels
     from relativepose_tpu_torch.utils import torch_import
+    from relativepose_tpu_torch.utils.checkpoint import restore_params
     torch.manual_seed(5)
     net = SCNet()
     comp = save_reference(reference_scnet_state_dict(net),
@@ -1283,9 +1368,9 @@ def phase_torch_checkpoint(card, work, launches):
               f"{time.perf_counter() - t:.1f} s on {card}", flush=True)
         check_cli_run("train_completion --torch_feat_ckpt", ckpt,
                       "ConvBlock_0")
-        n = len(np.load(os.path.join(work, ckpt)).files)
-        print(f"train_completion --torch_feat_ckpt: {n} arrays in its npz",
-              flush=True)
+        n = len(_digests(restore_params(os.path.dirname(ckpt))))
+        print(f"train_completion --torch_feat_ckpt: {n} leaves in its "
+              "orbax checkpoint", flush=True)
     finally:
         os.chdir(cwd)
         if cache is None:

@@ -136,7 +136,8 @@ def run_ranks(args, rank_fn):
     ranks (1 by default): the experiment directory is made once, here;
     with more than one rank each is a process of its own, joined over
     NCCL (cuda) or gloo (cpu) through a FileStore in that directory, and
-    the newest checkpoint's path is returned after all have ended."""
+    the newest checkpoint's path (its `checkpoint_%04d/`) is returned
+    after all have ended."""
     import torch
 
     from relativepose_tpu_torch.train import mesh

@@ -19,8 +19,9 @@ The classical methods (`--method super4pcs | gs | fgs | cgs`) register
 each pair in the native library (`eval/baselines.py`).  `--device cpu`
 runs everything on the CPU.
 
-`--comp_ckpt` also takes the JAX package's orbax checkpoint manager
-directory, as its evaluate CLI does (the newest `checkpoint_%04d/`, read
+`--comp_ckpt` also takes a checkpoint manager directory, as the JAX
+package's evaluate CLI does: the params directory of the completion or
+fine-tuning CLI of either package (its newest `checkpoint_%04d/`, read
 without JAX by `utils/orbax_read.py`):
     python -m relativepose_tpu_torch.cli.evaluate --dataList synthetic \
         --method ours --comp_ckpt experiments/exp_comp_suncg/params
@@ -69,8 +70,8 @@ def _parse_args(argv=None):
     p.add_argument("--entrySplit", type=int, default=None)
     p.add_argument("--batch_pairs", type=int, default=4)
     p.add_argument("--comp_ckpt", type=str, default=None,
-                   help="completion weights: an npz weight file, or an "
-                        "orbax checkpoint manager directory (its newest "
+                   help="completion weights: an npz weight file, or a "
+                        "checkpoint manager directory (its newest "
                         "checkpoint_<step>/)")
     p.add_argument("--torch_comp_ckpt", type=str, default=None,
                    help="the original repository's SCNet state dict "
@@ -153,7 +154,7 @@ def _parse_args(argv=None):
 
 def scnet_fn_factory_from_checkpoint(args, layout: ChannelLayout):
     """The completion net of the eval pipeline: SCNet with the weights of
-    an npz file or an orbax checkpoint manager directory (`--comp_ckpt`)
+    an npz file or a checkpoint manager directory (`--comp_ckpt`)
     or of the original repository's state dict (`--torch_comp_ckpt`), or
     the ground-truth oracle without either.
 

@@ -3,15 +3,16 @@ whole complete -> match -> solve recurrence (`train/finetune_pose.py`).
 
 The flags of `relativepose_tpu.cli.finetune_pose`, plus `--device`:
     python -m relativepose_tpu_torch.cli.finetune_pose --exp comp_ft \\
-        --comp_ckpt experiments/exp_comp/params/checkpoint_0100.npz \\
+        --comp_ckpt experiments/exp_comp_suncg/params \\
         --synthetic_family suncg --steps 400 --batch_pairs 4 --rm
 
 On the CPU at a small width: `--device cpu --bf16 0 --ngf 8` and a
-checkpoint of that width.  Writes `checkpoint_%04d.npz` (SCNet's tree, the
-format `cli.evaluate --comp_ckpt` reads) and its `.resume.npz` to
-experiments/exp_<exp>/params.  `--comp_ckpt` also takes an orbax
-checkpoint manager directory of the JAX package's completion CLI (its
-newest `checkpoint_%04d/`, `utils/checkpoint.py::restore_params`).
+checkpoint of that width.  `--comp_ckpt` takes the checkpoint manager
+directory of the completion CLI of either package (its newest checkpoint,
+`utils/checkpoint.py::restore_params`) or an npz weight file.  Writes the
+orbax `checkpoint_%04d/` that the JAX package's driver writes ({'params':
+SCNet's tree, 'step'}) to experiments/exp_<exp>/params, which
+`cli.evaluate --comp_ckpt` of either package reads.
 """
 
 from __future__ import annotations
@@ -48,9 +49,9 @@ def _parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--exp", type=str, required=True)
     p.add_argument("--comp_ckpt", type=str, required=True,
-                   help="completion weights: an npz weight file, or an "
-                        "orbax checkpoint manager directory (its newest "
-                        "checkpoint_<step>/)")
+                   help="completion weights: a checkpoint manager "
+                        "directory (experiments/exp_<name>/params, its "
+                        "newest checkpoint), or an npz weight file")
     p.add_argument("--synthetic_family", type=str, default="suncg")
     p.add_argument("--synthetic_n", type=int, default=1024)
     p.add_argument("--view_detail_jitter", type=int, default=1)
@@ -102,7 +103,7 @@ def pair_overlaps(store: DeviceStore, family: str):
 
 
 def main(argv=None):
-    """Returns the path of the last npz checkpoint."""
+    """Returns the path of the last checkpoint (its `checkpoint_%04d/`)."""
     args = _parse_args(argv)
     device = common.resolve_device(args)
     dirs = ExperimentDirs(args.exp, rm=args.rm, resume=not args.rm)
@@ -163,7 +164,9 @@ def main(argv=None):
                  f"gnorm {m['grad_norm']:.3f} "
                  f"({(time.time() - t0) / (it + 1):.2f} s/step)")
         if (it + 1) % args.save_every == 0 or it + 1 == args.steps:
-            path = ckpt.save(it + 1, state)
+            path = ckpt.save(it + 1, {
+                "params": state.params_tree(),
+                "step": np.asarray(state.step, np.int32)})
             logf(f"step {it + 1}: checkpoint saved")
     return path
 

@@ -3,12 +3,13 @@
 
     python -m relativepose_tpu_torch.cli.train_completion --exp comp_suncg \
         --dataList synthetic --synthetic_family suncg --featurelearning 1 \
-        --feat_ckpt experiments/exp_feat_suncg/params/checkpoint_0001.npz
+        --feat_ckpt experiments/exp_feat_suncg/params
 
-`--feat_ckpt` loads the frozen feature net from a `net_f` tree: an npz
-weight file of the feature CLI of either package, or the orbax checkpoint
-manager directory of the JAX package's feature CLI (its newest
-`checkpoint_%04d/`, `utils/checkpoint.py::restore_params`).
+`--feat_ckpt` loads the frozen feature net from a `net_f` tree: the
+checkpoint manager directory of the feature CLI of either package (its
+newest `checkpoint_%04d/`, `utils/checkpoint.py::restore_params`; or the
+newest `checkpoint_%04d.npz` of an earlier port run), or an npz weight
+file.
 `--torch_feat_ckpt` loads it from the original repository's state dict
 (`utils/torch_import.py`), with its BatchNorm running statistics folded
 into a frozen affine.  `--resume` continues a run of either package, as
@@ -87,9 +88,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     train_feature.add_driver_args(p)
     p.add_argument("--feat_ckpt", type=str, default=None,
-                   help="frozen feature net: an npz weight file, or an "
-                        "orbax checkpoint manager directory (its newest "
-                        "checkpoint_<step>/)")
+                   help="frozen feature net: a checkpoint manager "
+                        "directory (experiments/exp_<name>/params, its "
+                        "newest checkpoint), or an npz weight file")
     p.add_argument("--torch_feat_ckpt", type=str, default=None,
                    help="the original repository's netF state dict "
                         "(.pth.tar), converted on load "

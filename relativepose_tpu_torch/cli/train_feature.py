@@ -7,13 +7,17 @@ Synthetic pairs on the card:
 
 Real datasets: --dataList suncgv3 --listPath data/dataList/suncgv3.npy in
 the original on-disk layout.  `--device cpu` runs on the CPU.  Each
-checkpoint is `experiments/exp_<name>/params/checkpoint_%04d.npz`, in
-the JAX package's npz format (`utils/checkpoint.py`); scalars go to
+checkpoint is the orbax directory
+`experiments/exp_<name>/params/checkpoint_%04d/` that the JAX package's
+CLI writes, holding the state tree it saves (`utils/checkpoint.py`,
+`train/state.py::TrainState.flax_state`): pass
+`--feat_ckpt experiments/exp_<name>/params` to the completion CLI of
+either package; scalars go to
 `experiments/exp_<name>/tensorboard/scalars.jsonl`.  `--resume` continues
-from the newest checkpoint in that directory: the port's npz, or an orbax
-`checkpoint_%04d/` that the JAX package's CLI wrote there (a TPU run
-resumes on the card: parameters and Adam moments as saved, the epoch
-counter from the checkpoint's number; `train/state.py::load_flax_state`).
+from the newest checkpoint in that directory, whichever package wrote it
+(a TPU run resumes on the card and a card run on the TPU: parameters and
+Adam moments as saved, the epoch counter from the checkpoint's number), or
+from the npz pair of an earlier port run.
 
 `--num_devices N [--model_parallel M]` trains on N ranks, one card each (or
 N CPU processes with `--device cpu`): one global step of `--batch_size`
@@ -167,7 +171,8 @@ def run(args, dataset, device, state, dirs, logf, step_fn, m):
     checkpoints every --save_every epochs and at the end (rank 0 logs and
     writes; every rank takes part in gathering split parameters).
     step_fn(batch, mode) -> dict of 0-d tensors.  Returns the newest
-    checkpoint's path on rank 0, None on the others."""
+    checkpoint's path (its `checkpoint_%04d/`) on rank 0, None on the
+    others."""
     ckpt = CheckpointManager(dirs.params_dir, keep=3)
     start_epoch = 0
     if args.resume:

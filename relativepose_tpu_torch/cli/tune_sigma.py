@@ -3,7 +3,7 @@
 
 Caches the matching primitives of every recurrence level by running the
 recurrent pipeline over the pairs (oracle completion, or SCNet with
-`--comp_ckpt`: npz weights or an orbax checkpoint manager directory), then
+`--comp_ckpt`: npz weights or a checkpoint manager directory), then
 fits the 4 matching sigmas per level and writes a sigma table in the
 format of `data/params/final_param_*_rlevel_3.txt`:
     python -m relativepose_tpu_torch.cli.tune_sigma --dataList synthetic \\
@@ -49,8 +49,8 @@ def _parse_args(argv=None):
     p.add_argument("--outputType", type=str, default="rgbdnsf")
     p.add_argument("--featureDim", type=int, default=32)
     p.add_argument("--comp_ckpt", type=str, default=None,
-                   help="completion weights: an npz weight file or an "
-                        "orbax checkpoint manager directory (oracle "
+                   help="completion weights: an npz weight file or a "
+                        "checkpoint manager directory (oracle "
                         "completion without one)")
     p.add_argument("--ngf", type=int, default=64,
                    help="SCNet width (must match the checkpoint)")

@@ -1,9 +1,10 @@
-"""Rotation helpers: rigid transforms and geodesic distance.
+"""Rotation helpers: elementary rotations, rigid transforms and geodesic
+distance.
 
-Port of `relativepose_tpu/core/rotation.py` (make_se3, inverse_se3,
-angular_distance, axis_angle_to_rot, random_rotation), batched over
-leading dimensions.  The random draws of `random_rotation` are passed in
-as tensors, so a test can hand it the JAX package's draws.
+Port of `relativepose_tpu/core/rotation.py` (rx, ry, rz, make_se3,
+inverse_se3, angular_distance, axis_angle_to_rot, random_rotation),
+batched over leading dimensions.  The random draws of `random_rotation`
+are passed in as tensors, so a test can hand it the JAX package's draws.
 
 Products of small matrices go through `small_matmul`, which rounds as
 XLA's CPU dot does (a fused multiply-add chain over the inner dimension)
@@ -39,6 +40,30 @@ def small_matmul(a, b):
     f64)."""
     return _fma_chain([t[..., :, None] for t in a.unbind(-1)],
                       [t[..., None, :] for t in b.unbind(-2)], a.dtype)
+
+
+def _elementary(angle, entries):
+    angle = torch.as_tensor(angle)
+    c, s = torch.cos(angle), torch.sin(angle)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    parts = {"c": c, "s": s, "-s": -s, "0": z, "1": o}
+    return torch.stack([parts[e] for e in entries.split()], dim=-1) \
+        .reshape(angle.shape + (3, 3))
+
+
+def rx(theta):
+    """Rotation about x by `theta` (radians): [...] -> [..., 3, 3]."""
+    return _elementary(theta, "1 0 0  0 c -s  0 s c")
+
+
+def ry(phi):
+    """Rotation about y by `phi` (radians): [...] -> [..., 3, 3]."""
+    return _elementary(phi, "c 0 s  0 1 0  -s 0 c")
+
+
+def rz(psi):
+    """Rotation about z by `psi` (radians): [...] -> [..., 3, 3]."""
+    return _elementary(psi, "c -s 0  s c 0  0 0 1")
 
 
 def angular_distance(R_hat, R):

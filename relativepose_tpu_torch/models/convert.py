@@ -5,9 +5,10 @@ or a flat dict of numpy arrays with '/'-joined keys, as the shipped
 `relativepose_tpu/data/pretrained/*.npz` files hold them, and loads it
 into the port's SCNet, Resnet18_8s or SegmentationHead
 (`scnet_state_dict` gives SCNet's `state_dict`).  `flax_params` goes the
-other way: a port module -> the Flax-keyed tree of numpy arrays, which
-`utils/checkpoint.py::save_params_npz` writes in the JAX package's npz
-format.  Nothing converted is written by this module.
+other way: a port module (or gradients or Adam moments of its
+parameters) -> the Flax-keyed tree of numpy arrays, which the checkpoints
+of `utils/checkpoint.py` hold.  Nothing converted is written by this
+module.
 
 Name map, one rule per block kind (torch prefix <-> Flax prefix, `{}`
 the block index):
@@ -142,15 +143,21 @@ def _rules(model):
     return _SCNET
 
 
-def flax_params(model, grads: bool = False):
+def flax_params(model, grads: bool = False, moments: dict = None):
     """The port's SCNet, Resnet18_8s or SegmentationHead -> the Flax
     parameter tree (nested dicts of f32 numpy arrays); with `grads`, the
-    tree of the parameters' gradients (BatchNorm scales carry no
-    offset there)."""
+    tree of the parameters' gradients; with `moments` ({torch name:
+    tensor}, e.g. an Adam moment of each parameter), the tree of those
+    (BatchNorm scales carry no offset in either)."""
     rules = _rules(model)
     tree = {}
-    values = {k: p.grad for k, p in model.named_parameters()} if grads \
-        else model.state_dict()
+    offset = not grads and moments is None
+    if moments is not None:
+        values = moments
+    elif grads:
+        values = {k: p.grad for k, p in model.named_parameters()}
+    else:
+        values = model.state_dict()
     for key, t in values.items():
         name, kind, leaf = _rename(key, rules, 0, 1, ".", "/")
         arr = t.detach().float().cpu().numpy()
@@ -158,7 +165,7 @@ def flax_params(model, grads: bool = False):
             arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
         elif leaf == "weight" and kind == "conv":
             arr = arr.transpose(2, 3, 1, 0)
-        elif kind == "bn" and leaf == "weight" and not grads:
+        elif kind == "bn" and leaf == "weight" and offset:
             arr = arr - 1.0
         node = tree
         parts = name.split("/")

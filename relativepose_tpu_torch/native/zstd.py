@@ -1,4 +1,5 @@
-"""Zstandard decompression and CRC-32C through the port's own decoder.
+"""Zstandard frames and CRC-32C: the port's own decoder, and frames of
+raw blocks written in Python.
 
 `native/zstd.cpp` is a decode-only Zstandard decoder (RFC 8878) with a
 plain C interface, bound here with ctypes.  It is built with g++ at first
@@ -8,11 +9,17 @@ package.  There is no fallback: without g++ the first call raises.
 
 Malformed input raises `ValueError` with the decoder's reason; the
 decoder reads only the input and writes only the output buffer.
+
+`frame_raw` writes the other direction without the library: one valid
+frame whose blocks are stored, not compressed (what
+`utils/orbax_write.py` puts in a checkpoint's zarr chunks; f32 weights
+and Adam moments shrink by a few percent at most under zstd level 1).
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +42,13 @@ _ERRORS = {
     -10: "out of memory",
 }
 _UNKNOWN = -9
+
+MAGIC = b"\x28\xb5\x2f\xfd"
+RAW_BLOCK_MAX = 128 * 1024   # Block_Maximum_Size, and the frame's window
+# Frame_Header_Descriptor: Frame_Content_Size_flag 3 (an 8-byte size), no
+# Single_Segment_flag, no checksum, no dictionary; Window_Descriptor:
+# exponent 7, mantissa 0, a 2^(10 + 7) = 128 KiB window
+_RAW_HEADER = MAGIC + bytes([0xC0, 7 << 3])
 
 _LIB = None
 build_seconds = None   # seconds of this process's build, None if none ran
@@ -111,3 +125,19 @@ def crc32c(data) -> int:
     """CRC-32C (Castagnoli) of a bytes-like object."""
     a = _bytes(data)
     return int(_load().rp_crc32c(a.ctypes.data, a.size))
+
+
+def frame_raw(data) -> bytes:
+    """`data` (a C-contiguous bytes-like object) as one zstd frame of
+    Raw_Blocks (Block_Type 0) of at most 128 KiB each, with the frame's
+    content size and no checksum.  Each block header is 3 bytes, little
+    endian: Last_Block (bit 0), Block_Type (bits 1-2), Block_Size (bits
+    3-23).  Empty data is one empty last block."""
+    view = memoryview(data).cast("B")
+    n = len(view)
+    parts = [_RAW_HEADER, struct.pack("<Q", n)]
+    for lo in range(0, max(n, 1), RAW_BLOCK_MAX):
+        size = min(RAW_BLOCK_MAX, n - lo)
+        parts.append(struct.pack("<I", size << 3 | (lo + size == n))[:3])
+        parts.append(view[lo:lo + size])
+    return b"".join(parts)

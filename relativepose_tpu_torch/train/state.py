@@ -5,27 +5,42 @@ parameters live in `nn.Module`s and Adam is `torch.optim.Adam` with the
 same hyper-parameters (lr 2e-4, betas (0.5, 0.999), eps 1e-8).  Pose
 fine-tuning and sigma tuning step `OptaxAdam`, whose updates equal
 optax's.
-`params_tree` gives the trained networks as the Flax-keyed tree that
-`utils/checkpoint.py::save_params_npz` writes in the JAX package's npz
-format; `resume_arrays` / `load_resume_arrays` carry everything a resumed
-run needs (f32 parameters, Adam moments and steps) under torch names.
-`load_flax_state` resumes from a JAX trainer state instead (an orbax
-checkpoint of the JAX package's training CLIs, `utils/orbax_read.py`):
-`flax_resume_arrays` maps its params and optax Adam moments onto those
-names.  `torch.optim.Adam` then steps on; its bias corrections, taken in
-double precision, differ from optax's f32 ones by about 6e-6 of an update
-(see `OptaxAdam`), so the resumed run follows the JAX run within that.
+`params_tree` gives the trained networks as the Flax-keyed tree of the
+JAX package's checkpoints; `flax_state` gives the whole state as the JAX
+package's trainers hold it ({'params', 'opt_state': optax.adam's state,
+'step'}, the tree its training CLIs save), which
+`utils/checkpoint.py::CheckpointManager.save` writes as an orbax
+checkpoint.  `load_flax_state` resumes from such a tree (an orbax
+checkpoint of either package, `utils/orbax_read.py`):
+`flax_resume_arrays` maps its params and optax Adam moments onto the
+torch names of `resume_arrays` / `load_resume_arrays`, which carry
+everything a resumed run needs (f32 parameters, Adam moments and steps;
+the npz checkpoints of earlier port runs hold them).
+`torch.optim.Adam` then steps on; its bias corrections, taken in double
+precision, differ from optax's f32 ones by about 6e-6 of an update (see
+`OptaxAdam`), so a run resumed across the packages follows within that.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from relativepose_tpu_torch.models import convert
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax's Adam state, field for field (orbax keys it by field name)."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class EmptyState(NamedTuple):
+    """optax's state of a stateless transform (orbax saves it as None)."""
 
 
 @dataclasses.dataclass
@@ -60,11 +75,43 @@ class TrainState:
         return [(f"{name}.{k}", p) for name, m in self.models.items()
                 for k, p in m.named_parameters()]
 
-    def params_tree(self) -> dict:
+    def _tree(self, fn):
+        """fn(model) of the root network, or {name: fn(model)} of every
+        trained one."""
         if self.root is not None:
-            return convert.flax_params(self.models[self.root])
-        return {name: convert.flax_params(m)
-                for name, m in self.models.items()}
+            return fn(self.models[self.root])
+        return {name: fn(m) for name, m in self.models.items()}
+
+    def params_tree(self) -> dict:
+        return self._tree(convert.flax_params)
+
+    def flax_state(self) -> dict:
+        """The JAX trainers' state tree (`relativepose_tpu/train/
+        feature.py::init_state`, `train/completion.py::init_state`) after
+        `self.step` steps: {'params', 'opt_state': (ScaleByAdamState(count,
+        mu, nu), EmptyState()), 'step'}, plus the frozen feature net as
+        'net_f_params' for completion.  mu and nu are Adam's moments in the
+        params' layout (`convert.flax_params(moments=...)`), zero before
+        the first step as `optax.adam(...).init` makes them; count is
+        Adam's step and `step` the trainer's, as 0-d int32 (what a jitted
+        JAX step leaves).  Split parameters must be gathered first
+        (`train/mesh.py::gathered`)."""
+        def moments(key):
+            return self._tree(lambda model: convert.flax_params(
+                model, moments={k: self.optimizer.state.get(p, {}).get(
+                    key, torch.zeros_like(p))
+                    for k, p in model.named_parameters()}))
+
+        count = max([int(st["step"]) for st in self.optimizer.state.values()
+                     if "step" in st], default=0)
+        adam = ScaleByAdamState(np.asarray(count, np.int32),
+                                moments("exp_avg"), moments("exp_avg_sq"))
+        out = {"params": self.params_tree(),
+               "opt_state": (adam, EmptyState()),
+               "step": np.asarray(self.step, np.int32)}
+        if "net_f" in self.frozen:
+            out["net_f_params"] = convert.flax_params(self.frozen["net_f"])
+        return out
 
     def resume_arrays(self) -> dict:
         """Flat dict of f32 numpy arrays: param/<name>, exp_avg/<name>,

@@ -1,7 +1,6 @@
 """Callback system for the trainer.
 
-The parts of `relativepose_tpu/utils/callbacks.py` (plain Python) that
-the training drivers use."""
+A copy of `relativepose_tpu/utils/callbacks.py` (plain Python)."""
 
 from __future__ import annotations
 
@@ -54,6 +53,19 @@ class OnceCallback(Callback):
         if not self._done:
             self._done = True
             callback_log(f"once callback {self.func.__name__}")
+            return self.func(context, *self.args, **self.kwargs)
+
+
+class ScheduledCallback(Callback):
+    """Runs at specific epochs (utils/callbacks.py:126-157)."""
+
+    def __init__(self, cb_loc, schedule, func, args=None, kwargs=None):
+        super().__init__(cb_loc, func, args, kwargs)
+        self.schedule = set(schedule)
+
+    def run(self, context):
+        if context.get("epoch", 0) in self.schedule:
+            callback_log(f"scheduled callback {self.func.__name__}")
             return self.func(context, *self.args, **self.kwargs)
 
 

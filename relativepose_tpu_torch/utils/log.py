@@ -1,11 +1,11 @@
 """Meters, file logging and coloured console output.
 
-The parts of `relativepose_tpu/utils/log.py` (plain Python) that the
-trainer uses."""
+A copy of `relativepose_tpu/utils/log.py` (plain Python)."""
 
 from __future__ import annotations
 
 import sys
+import time
 
 
 class AverageMeter:
@@ -25,6 +25,23 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
+
+
+class FrequencyAverageMeter:
+    """Events-per-second meter."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.start = time.time()
+        self.count = 0
+        self.rate = 0.0
+
+    def update(self, n=1):
+        self.count += n
+        dt = time.time() - self.start
+        self.rate = self.count / dt if dt > 0 else 0.0
 
 
 class FileLogger:
@@ -61,3 +78,12 @@ def colored_log(prompt, texts, color="green", bold=True):
 def callback_log(texts):
     colored_log("[Callback] ", texts)
 
+
+
+def warning_log(texts):
+    colored_log("[Warning] ", texts, color="yellow")
+
+
+def error_log(texts):
+    colored_log("[Error] ", texts, color="red")
+    raise RuntimeError(texts)

@@ -1,5 +1,5 @@
-"""A read-only OCDBT key-value store: tensorstore's "OCDBT storage format",
-the layout orbax keeps a checkpoint's arrays in, read without tensorstore.
+"""OCDBT key-value stores, tensorstore's "OCDBT storage format", the layout
+orbax keeps a checkpoint's arrays in, read and written without tensorstore.
 
 A database is a directory.  `manifest.ocdbt` holds the configuration, a
 data-file table and the list of versions (one per commit, the newest last);
@@ -36,12 +36,20 @@ Encoding, as worked out from databases written by tensorstore 0.1.80:
   gives, per child, the length of the key prefix common to its subtree
   (which the child's keys leave out), then data file ids, offsets, lengths,
   key counts, tree bytes and indirect value bytes.
+- The byte totals count what a subtree holds: its encoded node files
+  (tree bytes) and the values of its leaves that lie in data files
+  (indirect value bytes); a version gives them for the whole tree.
+
+`write_ocdbt` writes a database of one version (generation 1) in that
+format, uncompressed: every value longer than the inline limit, then the
+tree nodes bottom-up, in one data file `d/<32 hex digits>`.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import time
 
 from relativepose_tpu_torch.native import zstd
 
@@ -249,3 +257,181 @@ class OcdbtReader:
     def read(self, key) -> bytes:
         ref = self._values[key.encode() if isinstance(key, str) else key]
         return ref if isinstance(ref, bytes) else self._file(*ref)
+
+
+# ------------------------------------------------------------------ writing
+
+# orbax's configuration (tensorstore_utils.add_ocdbt_write_options)
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+# bounds, in bytes, of a node's height, data file table and entry count,
+# and of what a leaf entry or an interior entry adds besides its key
+_NODE_BOUND, _LEAF_ENTRY_BOUND, _CHILD_ENTRY_BOUND = 64, 40, 80
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n >= 0x80:
+        out.append(n & 0x7F | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _varints(ns) -> bytes:
+    return b"".join(map(_varint, ns))
+
+
+def _common(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+def _prefixed(strings: list, extra: list = None) -> bytes:
+    """The inverse of `_Body.prefixed`."""
+    shared = [_common(a, b) for a, b in zip(strings, strings[1:])]
+    suffixes = [s[k:] for s, k in zip(strings, [0] + shared)]
+    return (_varints(shared) + _varints(map(len, suffixes))
+            + (_varints(extra) if extra is not None else b"")
+            + b"".join(suffixes))
+
+
+def _data_file_table(paths: list) -> bytes:
+    return _varint(len(paths)) + _prefixed([p.encode() for p in paths],
+                                           [0] * len(paths))
+
+
+def _frame(magic: int, body: bytes) -> bytes:
+    """Header (uncompressed, format version 0), body and CRC-32C."""
+    head = struct.pack(">I", magic) + struct.pack("<Q", len(body) + 18) \
+        + b"\x00\x00"
+    blob = head + body
+    return blob + struct.pack("<I", zstd.crc32c(blob))
+
+
+class _Node:
+    """A subtree while the tree is built: its children (None for a leaf),
+    its keys' range and what it holds."""
+
+    def __init__(self, items: list, children: list = None):
+        self.items, self.children = items, children
+        self.first = items[0][0]
+        self.last = children[-1].last if children else items[-1][0]
+        self.keys = sum(it[2] for it in items) if children else len(items)
+        self.ref = None   # (offset, length) once written
+        self.tree_bytes = self.value_bytes = 0
+
+
+def _pack(items: list, size, limit: int) -> list:
+    """Consecutive groups of `items`, each within `limit` bytes by
+    `size(item)` (a bound: the keys' prefixes are not taken off)."""
+    groups, cur, used = [], [], _NODE_BOUND
+    for it in items:
+        n = size(it)
+        if cur and used + n > limit:
+            groups.append(cur)
+            cur, used = [], _NODE_BOUND
+        cur.append(it)
+        used += n
+    return groups + [cur] if cur else groups
+
+
+def write_ocdbt(path: str, values: dict,
+                max_decoded_node_bytes: int = MAX_DECODED_NODE_BYTES) -> str:
+    """Write the OCDBT database of `values` ({key: bytes-like}, str or
+    bytes keys) into the new directory `path`; returns its data file's
+    path relative to `path`.
+
+    The root is one leaf while its encoded body fits in
+    `max_decoded_node_bytes` (orbax asks for 100 MB); past that, leaves go
+    under interior nodes, each child's keys without its subtree's common
+    prefix, as `OcdbtReader` reads them."""
+    items = sorted(((k.encode() if isinstance(k, str) else bytes(k),
+                     memoryview(v).cast("B")) for k, v in values.items()),
+                   key=lambda kv: kv[0])
+    if any(a[0] == b[0] for a, b in zip(items, items[1:])):
+        raise ValueError("OCDBT: duplicate keys")
+    os.makedirs(os.path.join(path, "d"))
+    rel = "d/" + os.urandom(16).hex()
+    with open(os.path.join(path, rel), "wb") as f:
+        # the values stored out of line first, then the nodes bottom-up
+        leaf_items = []
+        for key, v in items:
+            if len(v) > MAX_INLINE_VALUE_BYTES:
+                leaf_items.append((key, v, f.tell()))
+                f.write(v)
+            else:
+                leaf_items.append((key, v, None))
+        level = [_Node(g) for g in _pack(
+            leaf_items, lambda it: len(it[0]) + _LEAF_ENTRY_BOUND + (
+                len(it[1]) if it[2] is None else 0),
+            max_decoded_node_bytes)]
+        height = 0
+        while len(level) > 1:
+            level = [_Node(g, [it[1] for it in g])
+                     for g in _pack([(n.first, n, n.keys) for n in level],
+                                    lambda it: len(it[0])
+                                    + _CHILD_ENTRY_BOUND,
+                                    max_decoded_node_bytes)]
+            height += 1
+        root = level[0] if level else None
+        if root is not None:
+            _write_node(f, rel, root, b"", height)
+    config = (os.urandom(16) + _varints([0, MAX_INLINE_VALUE_BYTES,
+                                         max_decoded_node_bytes])
+              + bytes([VERSION_TREE_ARITY_LOG2]) + _varint(0))
+    if root is None:    # an empty tree: no data file to name
+        table, ref, counts = _data_file_table([""]), (_EMPTY, _EMPTY), \
+            (0, 0, 0)
+    else:
+        table, ref = _data_file_table([rel]), root.ref
+        counts = (root.keys, root.tree_bytes, root.value_bytes)
+    body = (config + table + _varint(1) + _varint(1) + bytes([height])
+            + _varints([0, *ref, *counts])
+            + struct.pack("<Q", time.time_ns()) + _varint(0))
+    with open(os.path.join(path, "manifest.ocdbt"), "wb") as f:
+        f.write(_frame(MANIFEST_MAGIC, body))
+    return rel
+
+
+def _write_node(f, rel: str, node: _Node, prefix: bytes, height: int):
+    """Write `node` (its children first) at the end of data file `f`
+    (`rel` in the database), its keys without `prefix`; sets its ref and
+    byte totals."""
+    n = len(node.items)
+    if node.children is None:
+        keys = [k[len(prefix):] for k, _, _ in node.items]
+        ind = [off for _, _, off in node.items if off is not None]
+        node.value_bytes = sum(len(v) for _, v, off in node.items
+                               if off is not None)
+        body = (bytes([0]) + _data_file_table([rel] if ind else [])
+                + _varint(n) + _prefixed(keys)
+                + _varints(len(v) for _, v, _ in node.items)
+                + _varints(int(off is not None) for _, _, off in node.items)
+                + _varints([0] * len(ind)) + _varints(ind)
+                + b"".join(v for _, v, off in node.items if off is None))
+    else:
+        subs = []
+        for child in node.children:
+            sub = child.first[:_common(child.first, child.last)]
+            _write_node(f, rel, child, sub, height - 1)
+            subs.append(sub)
+        node.tree_bytes = sum(c.tree_bytes for c in node.children)
+        node.value_bytes = sum(c.value_bytes for c in node.children)
+        cs = node.children
+        body = (bytes([height]) + _data_file_table([rel]) + _varint(n)
+                + _prefixed([c.first[len(prefix):] for c in cs],
+                            [len(s) - len(prefix) for s in subs])
+                + _varints([0] * n) + _varints(c.ref[0] for c in cs)
+                + _varints(c.ref[1] for c in cs)
+                + _varints(c.keys for c in cs)
+                + _varints(c.tree_bytes for c in cs)
+                + _varints(c.value_bytes for c in cs))
+    blob = _frame(NODE_MAGIC, body)
+    node.ref = (f.tell(), len(blob))
+    node.tree_bytes += len(blob)
+    f.write(blob)

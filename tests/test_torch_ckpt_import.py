@@ -28,6 +28,7 @@ from relativepose_tpu_torch.cli import evaluate, train_completion
 from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.models.resnet import Resnet18_8s
 from relativepose_tpu_torch.models.scnet import SCNet
+from relativepose_tpu_torch.utils import orbax_read
 from relativepose_tpu_torch.utils import torch_import as tti
 from test_torch_import import _randomize, _TorchResnet18_8s, _TorchSCNet
 
@@ -151,7 +152,8 @@ def test_train_completion_cli_reads_a_reference_feature_net(
         "--dataList", "synthetic", "--max_epoch", "1", "--device_data", "0",
         "--featurelearning", "1", "--torch_feat_ckpt", ck, "--exp", "tf",
         "--rm"])
-    assert path.endswith(".npz")
+    assert path.endswith("checkpoint_0001")
+    assert orbax_read.is_checkpoint(path)
     log = (tmp_path / "experiments/exp_tf/exp_tf.log").read_text()
     assert "loaded frozen netF weights" in log
     import json

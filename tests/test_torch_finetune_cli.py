@@ -5,17 +5,18 @@ correspondences) and 30 power iterations, too slow for the CPU in the
 tier-1 run: here they are swapped for the small configuration of
 `tests/torch_parity.py`, and the driver runs a small SCNet (ngf 8, f32)
 for one step on 4 synthetic pairs.  Checked: its flags are the JAX
-driver's plus
---device; its npz checkpoint is read by the JAX package's
-`restore_params` as a Flax SCNet tree of the right shapes, and by the
-port's evaluation loader; the low-overlap filter keeps the same pairs as
-the JAX driver's compiled overlap on the same stored pairs (overlaps to
+driver's plus --device; its orbax checkpoint ({'params', 'step'}, as the
+JAX driver saves) is read by the JAX package's `restore_params` as a Flax
+SCNet tree of the right shapes, bit for bit as the port reads it, and by
+the port's evaluation loader; the low-overlap filter keeps the same pairs
+as the JAX driver's compiled overlap on the same stored pairs (overlaps to
 1e-5: counts of nearest neighbours within 0.08 m, whose squared distances
 round otherwise).
 """
 
 import argparse
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,11 @@ from relativepose_tpu_torch.data import datasets as dsets
 from relativepose_tpu_torch.data.device_store import DeviceStore
 from relativepose_tpu_torch.match.keypoints import KeypointConfig
 from relativepose_tpu_torch.match.solver import SolverStaticConfig
-from relativepose_tpu_torch.utils.checkpoint import save_params_npz
+from relativepose_tpu_torch.utils.checkpoint import (
+    restore_params,
+    save_params_npz,
+)
+from test_torch_orbax import assert_same_tree
 from torch_parity import SMALL, flax_scnet_params
 
 
@@ -51,12 +56,17 @@ def test_cli_runs_and_writes_an_npz_both_packages_read(tmp_path,
                       "--synthetic_n", "4", "--steps", "1",
                       "--batch_pairs", "2", "--alter_steps", "1",
                       "--log_every", "1"])
-    assert path.endswith("checkpoint_0001.npz")
+    assert path.endswith("checkpoint_0001")
+    path = os.path.dirname(path)   # the manager directory, as users pass
     log = (tmp_path / "experiments" / "exp_ft" / "exp_ft.log").read_text()
     losses = [float(line.split()[3]) for line in log.splitlines()
               if line.startswith("step ") and " loss " in line]
     assert len(losses) == 1 and np.isfinite(losses).all()
-    tree = jrestore(path)["params"]
+    state = jrestore(path)
+    assert_same_tree(restore_params(path), state)
+    assert set(state) == {"params", "step"} and int(state["step"]) == 1
+    assert state["step"].dtype == np.int32
+    tree = state["params"]
     flat_j = dict(jax.tree_util.tree_leaves_with_path(tree))
     flat_ref = dict(jax.tree_util.tree_leaves_with_path(params))
     assert set(flat_j) == set(flat_ref)

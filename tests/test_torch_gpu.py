@@ -506,3 +506,49 @@ def test_orbax_fixture_drives_scnet_on_card(cuda):
         got = net.to(cuda)(x.to(cuda)).cpu()
     assert bool(torch.isfinite(got).all())
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3)
+
+
+def test_orbax_checkpoint_of_a_card_step(cuda, tmp_path, monkeypatch):
+    """A completion state (ngf 8) trained one step on the card, saved by
+    the port's manager as an orbax checkpoint and read back: every leaf,
+    its dtype and its bits as `flax_state()` gives them; the evaluation
+    CLI on the card then runs from that params directory (`--comp_ckpt`)
+    to finite orthonormal poses."""
+    from relativepose_tpu_torch.cli import evaluate
+    from relativepose_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        restore_params,
+    )
+    from relativepose_tpu_torch.utils.orbax_write import flatten
+
+    _, batch = store_batches("suncg", cuda)
+    cfg = completion.CompletionTrainConfig(ngf=8, base_width=8)
+    state = completion.init_state(cfg, cuda, seed=1)
+    completion.train_step(state, batch, completion.draw(
+        cfg, batch, torch.Generator(device=cuda).manual_seed(6)), cfg)
+    params = str(tmp_path / "exp_card" / "params")
+    CheckpointManager(params).save(state.step, state)
+    want = {str([k for k, _ in keys]): v
+            for keys, v in flatten(state.flax_state())}
+    got = {str([k for k, _ in keys]): v
+           for keys, v in flatten(restore_params(params))}
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if isinstance(v, str):        # an empty node
+            assert got[k] == v, k
+        else:
+            assert got[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert int(got["['step']"]) == 1
+    monkeypatch.chdir(tmp_path)
+    rows = evaluate.main([
+        "--dataList", "synthetic", "--synthetic_family", "suncg",
+        "--method", "ours", "--maxIter", "4", "--batch_pairs", "4",
+        "--comp_ckpt", params, "--ngf", "8", "--rm", "--exp", "orbax_card",
+        "--device", "cuda"]).error_stats
+    assert rows
+    for r in rows:
+        T = np.asarray(r["T_hat"], np.float64)
+        assert np.isfinite(T).all()
+        R = T[:3, :3]
+        np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-3)

@@ -1,14 +1,23 @@
-"""The port's orbax reader (`utils/ocdbt.py`, `utils/orbax_read.py`,
-`utils/checkpoint.py`) against orbax and tensorstore, on the CPU.
+"""The port's orbax reader and writer (`utils/ocdbt.py`,
+`utils/orbax_read.py`, `utils/orbax_write.py`, `utils/checkpoint.py`)
+against orbax and tensorstore, on the CPU.
 
-Every checkpoint here is written by the JAX package's
+Reading: checkpoints written by the JAX package's
 `relativepose_tpu.utils.checkpoint.CheckpointManager` (orbax 0.11: OCDBT,
-zarr v2, zstd), and the port's read must equal the JAX package's
+zarr v2, zstd); the port's read must equal the JAX package's
 `restore_params` leaf for leaf: the same tree, dtypes and shapes, and
 values equal bit for bit (`np.array_equal`; bfloat16 leaves, a torch
 tensor on the port's side, by their bits).  The OCDBT store alone is held
-to tensorstore's own `kv.list()` / `kv.read()`.  Resuming a JAX training
-state: `tests/test_torch_orbax_resume.py`.
+to tensorstore's own `kv.list()` / `kv.read()`.
+
+Writing: the port writes the same trees; the JAX package's
+`restore_params` and orbax's own restore must give back what they give
+for the JAX manager's save of the tree, bit for bit; the `_METADATA` must
+parse to the JAX manager's, each `.zarray` must be orbax's byte for byte,
+and tensorstore's OCDBT kvstore must list and read what the port's reader
+does.  Manager directories that hold only the port's earlier npz pairs,
+or both formats, are read by their newest step.  Resuming a training
+state across the packages: `tests/test_torch_orbax_resume.py`.
 """
 
 import json
@@ -21,6 +30,7 @@ import jax
 import ml_dtypes
 import numpy as np
 import optax
+import orbax.checkpoint as ocp
 import pytest
 import tensorstore as ts
 import torch
@@ -31,8 +41,9 @@ from relativepose_tpu.utils.checkpoint import load_params_npz as jload
 from relativepose_tpu.utils.checkpoint import restore_params as jrestore
 from relativepose_tpu.utils.checkpoint import save_params_npz
 from relativepose_tpu_torch.cli import evaluate as tcli
+from relativepose_tpu_torch.native import zstd
 from relativepose_tpu_torch.utils import checkpoint as tckpt
-from relativepose_tpu_torch.utils import orbax_read
+from relativepose_tpu_torch.utils import orbax_read, orbax_write
 from relativepose_tpu_torch.utils.ocdbt import OcdbtReader
 from orbax_fixture import FIXTURE, MANIFEST, leaf_digests
 from test_torch_cli import cli_args
@@ -220,35 +231,124 @@ def test_restore_params_matches_orbax(tmp_path, request, make):
         assert OcdbtReader(os.path.join(d, "checkpoint_0003")).height >= 1
 
 
+@pytest.mark.parametrize("make", [dtype_tree, adam_tree, many_keys_tree],
+                         ids=["dtypes", "adam", "many_keys"])
+def test_port_writes_what_orbax_restores(tmp_path, make):
+    """The port's save of a tree against the JAX manager's save of it:
+    the same restores, metadata and arrays (many_keys with 4 kB nodes, so
+    that the port writes interior nodes)."""
+    tree = make(np.random.default_rng(0))
+    nodes = 4096 if make is many_keys_tree else None
+    port = orbax_write.save(str(tmp_path / "port" / "checkpoint_0003"),
+                            tree, max_decoded_node_bytes=nodes)
+    ref = os.path.join(save_jax(tmp_path / "jax", tree, 3), "checkpoint_0003")
+    want = jrestore(str(tmp_path / "jax"))
+    assert_same_tree(jrestore(str(tmp_path / "port")), want)
+    assert_same_tree(ocp.PyTreeCheckpointer().restore(port), want)
+    assert_same_tree(tckpt.restore_params(str(tmp_path / "port")), want)
+    for name in ("_METADATA", "_CHECKPOINT_METADATA"):
+        with open(os.path.join(port, name)) as f:
+            got = json.load(f)
+        with open(os.path.join(ref, name)) as f:
+            expect = json.load(f)
+        if name == "_CHECKPOINT_METADATA":   # but the timestamps
+            for k in ("init_timestamp_nsecs", "commit_timestamp_nsecs"):
+                assert 0 < got.pop(k) and expect.pop(k)
+        assert got == expect, name
+    kv = ts.KvStore.open({"driver": "ocdbt",
+                          "base": f"file://{port}/"}).result()
+    keys = sorted(k.decode() for k in kv.list().result())
+    reader, orbax_kv = OcdbtReader(port), OcdbtReader(ref)
+    assert reader.keys() == keys == orbax_kv.keys()
+    for k in keys:
+        value = reader.read(k)
+        assert kv.read(k).result().value == value, k
+        if k.endswith("/.zarray"):
+            assert value == orbax_kv.read(k), k
+        else:
+            assert zstd.decompress(value).tobytes() == \
+                zstd.decompress(orbax_kv.read(k)).tobytes(), k
+    assert reader.height >= (1 if nodes else 0)
+    assert os.listdir(tmp_path / "port") == ["checkpoint_0003"]
+
+
+def test_writer_refuses_what_orbax_refuses(tmp_path):
+    """Leaves the reader cannot read back raise, and no checkpoint
+    directory is left behind."""
+    d = str(tmp_path / "checkpoint_0001")
+    for tree, error in (({"s": np.asarray(["a", "b"])}, NotImplementedError),
+                        ({"c": np.ones(2, np.complex64)},
+                         NotImplementedError),
+                        ({"z": np.zeros((0, 3), np.float32)}, ValueError),
+                        ({}, ValueError)):
+        with pytest.raises(error):
+            orbax_write.save(d, tree)
+    assert os.listdir(tmp_path) == []
+
+
+def write_npz_step(directory, step, params, resume):
+    """The npz pair that the port's manager wrote before it wrote orbax:
+    the parameter tree (f16) and the resume arrays (f32)."""
+    path = os.path.join(str(directory), f"checkpoint_{step:04d}.npz")
+    tckpt.save_params_npz(path, params)
+    np.savez(path.replace(".npz", ".resume.npz"), **resume)
+    return path
+
+
+def test_npz_only_directory_is_read(tmp_path):
+    """A manager directory that holds only the port's npz pair: read by
+    `restore_params` and accepted by `require_checkpoint`; with orbax
+    steps beside it, the newest step of either format is read, and the
+    npz wins a tie."""
+    d = str(tmp_path / "params")
+    rng = np.random.default_rng(0)
+    trees = [{"w": rng.standard_normal(5).astype(np.float32)}
+             for _ in range(4)]
+    npz = write_npz_step(d, 1, trees[0], {"step": np.asarray(1, np.int64)})
+    tckpt.require_checkpoint(d)
+    assert_same_tree(tckpt.restore_params(d),
+                     {"params": tckpt.load_params_npz(npz)})
+    save_jax(d, {"params": trees[1]}, 2)
+    assert_same_tree(tckpt.restore_params(d), {"params": trees[1]})
+    npz = write_npz_step(d, 3, trees[2], {"step": np.asarray(3, np.int64)})
+    assert_same_tree(tckpt.restore_params(d),
+                     {"params": tckpt.load_params_npz(npz)})
+    save_jax(d, {"params": trees[3]}, 3)              # the tie: npz wins
+    assert_same_tree(tckpt.restore_params(d),
+                     {"params": tckpt.load_params_npz(npz)})
+    assert tckpt.CheckpointManager(d).all_steps() == [1, 2, 3]
+
+
 def test_manager_steps_keep_n_and_ties(tmp_path):
-    """The JAX manager's keep-N leaves steps 3 and 4; the port sees them,
-    restores the newest, never deletes them in its own keep-N, and prefers
-    its npz on a tie."""
+    """The JAX manager's keep-N leaves steps 3 and 4; the port sees them
+    and restores the newest, prefers an npz pair on a tie, and its own
+    saves (orbax, which the JAX manager restores) replace a step of either
+    format and keep the newest steps of either format."""
     d = tmp_path / "params"
     rng = np.random.default_rng(0)
     trees = {s: {"params": {"w": rng.standard_normal(5).astype(np.float32)},
-                 "step": np.asarray(s)} for s in range(1, 5)}
-    for s, t in trees.items():
-        save_jax(d, t, s, keep=2)
-    m = tckpt.CheckpointManager(str(d), keep=1)
+                 "step": np.asarray(s)} for s in range(1, 7)}
+    for s in range(1, 5):
+        save_jax(d, trees[s], s, keep=2)
+    m = tckpt.CheckpointManager(str(d), keep=2)
     assert m.all_steps() == JaxManager(str(d)).all_steps() == [3, 4]
     assert_same_tree(m.restore(), trees[4])
     assert_same_tree(m.restore(3), trees[3])
     assert_same_tree(tckpt.restore_params(str(d)), jrestore(str(d)))
 
-    class Npz:   # the two methods CheckpointManager.save calls
-        def params_tree(self):
-            return {"w": np.full(5, 9.0, np.float32)}
-
-        def resume_arrays(self):
-            return {"step": np.asarray(4, np.int64)}
-    m.save(4, Npz())
-    assert m.all_steps() == [3, 4]
+    write_npz_step(d, 4, trees[4]["params"],
+                   {"step": np.asarray(4, np.int64)})
     assert set(m.restore()) == {"step"}          # the tie: npz wins
-    m.save(5, Npz())
-    assert m.npz_steps() == [5] and m.all_steps() == [3, 4, 5]
-    assert sorted(p for p in os.listdir(d) if not p.endswith(".npz")) == \
-        ["checkpoint_0003", "checkpoint_0004"]
+    assert m.save(5, trees[5]) == m.path(5)
+    assert m.all_steps() == JaxManager(str(d)).all_steps() == [4, 5]
+    assert sorted(os.listdir(d)) == [
+        "checkpoint_0004", "checkpoint_0004.npz",
+        "checkpoint_0004.resume.npz", "checkpoint_0005"]
+    assert_same_tree(JaxManager(str(d)).restore(), trees[5])
+    m.save(4, trees[6])                     # replaces both formats of 4
+    assert sorted(os.listdir(d)) == ["checkpoint_0004", "checkpoint_0005"]
+    assert_same_tree(JaxManager(str(d)).restore(4), trees[6])
+    assert_same_tree(m.restore(4), trees[6])
 
 
 def test_empty_directory_raises(tmp_path):
@@ -308,6 +408,23 @@ def test_full_width_scnet(tmp_path, capsys):
               f"port's read {t2 - t1:.3f} s")
 
 
+def test_full_width_scnet_written_by_port(tmp_path, capsys):
+    """The shipped SCNet cast to f32, saved by the port's manager: the JAX
+    package's restore_params and the port's read give it back bit for
+    bit; the write time is printed."""
+    tree = {"params": jload(PRETRAINED), "step": np.asarray(1, np.int32)}
+    d = str(tmp_path / "params")
+    t0 = time.perf_counter()
+    tckpt.CheckpointManager(d).save(1, tree)
+    secs = time.perf_counter() - t0
+    assert_same_tree(jrestore(d), tree)
+    assert_same_tree(tckpt.restore_params(d), tree)
+    n = sum(a.nbytes for a in jax.tree.leaves(tree))
+    with capsys.disabled():
+        print(f"\nfull-width SCNet, {n / 1e6:.1f} MB f32, on the host CPU "
+              f"running the tests: the port's write {secs:.3f} s")
+
+
 # ------------------------------------------------------------------ fixture
 
 
@@ -318,7 +435,7 @@ def test_fixture_matches_manifest():
     assert leaf_digests(tckpt.restore_params(FIXTURE)) == want
 
 
-BLOCKER = r"""
+BLOCK = r"""
 import json, sys
 BLOCKED = ("jax", "jaxlib", "orbax", "tensorstore", "zstandard", "numcodecs",
            "ml_dtypes", "relativepose_tpu")
@@ -330,6 +447,8 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, "tests")
+"""
+BLOCKER = BLOCK + r"""
 from relativepose_tpu_torch.utils.checkpoint import restore_params
 from orbax_fixture import FIXTURE, MANIFEST, leaf_digests
 got = leaf_digests(restore_params(FIXTURE))
@@ -339,13 +458,51 @@ print(json.dumps({"leaves": len(got), "loaded": loaded}))
 """
 
 
-def test_reads_without_jax():
-    proc = subprocess.run([sys.executable, "-c", BLOCKER], cwd=REPO,
+WRITER = BLOCK + r"""
+import hashlib
+import numpy as np
+from relativepose_tpu_torch.train import completion
+from relativepose_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                     restore_params)
+from relativepose_tpu_torch.utils.orbax_write import flatten
+from orbax_fixture import FIXTURE, MANIFEST, leaf_digests
+
+def digests(tree):   # any tree: each leaf's key path, dtype and sha256
+    return {str([k for k, _ in keys]): leaf if isinstance(leaf, str) else (
+        np.asarray(leaf).dtype.str, hashlib.sha256(np.ascontiguousarray(
+            leaf).tobytes()).hexdigest()) for keys, leaf in flatten(tree)}
+
+manager = CheckpointManager(sys.argv[1])
+manager.save(1, restore_params(FIXTURE))
+got = leaf_digests(restore_params(sys.argv[1]))
+assert got == json.load(open(MANIFEST))["leaves"]
+state = completion.init_state(completion.CompletionTrainConfig(
+    ngf=2, base_width=2), "cpu")
+manager.save(2, state)
+assert digests(restore_params(sys.argv[1])) == digests(state.flax_state())
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps({"leaves": len(got), "loaded": loaded}))
+"""
+
+
+def run_blocked(script, *args):
+    proc = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO,
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr[-3000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"leaves": 104, "loaded": []}
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_reads_without_jax():
+    assert run_blocked(BLOCKER) == {"leaves": 104, "loaded": []}
+
+
+def test_writes_without_jax(tmp_path):
+    """The write path with JAX, orbax, tensorstore and ml_dtypes blocked:
+    the fixture's tree and a completion trainer's state saved by the
+    port's manager and read back with every leaf's sha256."""
+    assert run_blocked(WRITER, str(tmp_path / "params")) == \
+        {"leaves": 104, "loaded": []}
 
 
 # ------------------------------------------------------------------ CLI

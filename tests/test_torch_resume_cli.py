@@ -7,7 +7,8 @@ port's, seeded, through `convert.flax_params`), saved by the JAX
 package's `CheckpointManager` into `experiments/exp_<name>/params`.  Both
 CLIs run at the small size of `tests/test_torch_train_cli.py`, streaming
 their synthetic pairs (`--device_data 0`).  That the resumed state equals
-the JAX state bit for bit is `tests/test_torch_orbax_resume.py`'s.
+the JAX state bit for bit is `tests/test_torch_orbax_resume.py`'s, and so
+is resuming from the npz pair of an earlier port run.
 """
 
 import os
@@ -21,6 +22,7 @@ from relativepose_tpu_torch.cli import train_completion, train_feature
 from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.train import completion as tcomp
 from relativepose_tpu_torch.train import feature as tfeat
+from relativepose_tpu_torch.utils.checkpoint import restore_params
 from test_torch_train_cli import small
 
 
@@ -56,11 +58,11 @@ def test_cli_resumes_jax_run(workdir, cli):
         1, tree)
     ck = main(small("--exp", exp, "--resume", "--device_data", "0", *extra,
                     max_epoch=2))
-    assert os.path.basename(ck) == "checkpoint_0002.npz"
-    with np.load(ck.replace(".npz", ".resume.npz")) as z:
-        steps = int(z["step"]) - 5
-        counts = {float(z[k]) for k in z.files if k.startswith("adam_step/")}
-    assert steps > 0 and counts == {5.0 + steps}
+    assert os.path.basename(ck) == "checkpoint_0002"
+    saved = restore_params(os.path.dirname(ck))
+    steps = int(saved["step"]) - 5
+    assert steps > 0 and int(saved["opt_state"][0]["count"]) == 5 + steps
     with open(os.path.join("experiments", f"exp_{exp}", f"exp_{exp}.log")) \
             as f:
         assert "resume: ok, from epoch 1" in f.read()
+

@@ -141,3 +141,88 @@ def test_drawing_modules_import_without_cv2_or_matplotlib():
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def _rotation(name):
+    import jax.numpy as jnp
+
+    from relativepose_tpu.core import rotation as jrot
+    from relativepose_tpu_torch.core import rotation as trot
+    angles = np.random.default_rng(0).uniform(-4, 4, (3, 5)).astype(
+        np.float32)
+    for a in (angles, np.float32(0.25)):
+        want = np.asarray(getattr(jrot, name)(jnp.asarray(a)))
+        got = getattr(trot, name)(torch.as_tensor(a)).numpy()
+        assert got.shape == want.shape == np.shape(a) + (3, 3)
+        # cos and sin of f32 angles: the libraries' results differ by 1 ulp
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def _meter(monkeypatch):
+    import time
+
+    from relativepose_tpu.utils import log as jlog
+    from relativepose_tpu_torch.utils import log as tlog
+    clock = iter([100.0, 102.0, 104.0, 104.0] * 2)
+    monkeypatch.setattr(time, "time", lambda: next(clock))
+    states = []
+    for mod in (jlog, tlog):
+        m = mod.FrequencyAverageMeter()
+        m.update(3)
+        m.update(1)
+        m.update(0)   # no time passed since the last call but one
+        states.append(vars(m))
+    assert states[0] == states[1] == {"start": 100.0, "count": 4,
+                                      "rate": 1.0}
+
+
+def _logs(name, capsys):
+    from relativepose_tpu.utils import log as jlog
+    from relativepose_tpu_torch.utils import log as tlog
+    outs = []
+    for mod in (jlog, tlog):
+        if name == "error_log":
+            with pytest.raises(RuntimeError, match="^disk full$"):
+                mod.error_log("disk full")
+        else:
+            mod.warning_log("disk full")
+        outs.append(capsys.readouterr().err)
+    assert outs[0] == outs[1] and "disk full" in outs[1]
+
+
+def _scheduled(capsys):
+    from relativepose_tpu.utils import callbacks as jcb
+    from relativepose_tpu_torch.utils import callbacks as tcb
+    runs = []
+    for mod in (jcb, tcb):
+        seen = []
+
+        def save(context, tag):
+            seen.append((context["epoch"], tag))
+            return context["epoch"] * 10
+
+        cb = mod.ScheduledCallback(mod.CallbackLoc.epoch_end, [1, 3], save,
+                                   args=("x",))
+        rets = [cb.run({"epoch": e}) for e in range(5)] + [cb.run({})]
+        mod.run_callbacks([cb], mod.CallbackLoc.epoch_end, {"epoch": 3})
+        mod.run_callbacks([cb], mod.CallbackLoc.epoch_start, {"epoch": 1})
+        runs.append((seen, rets, capsys.readouterr().err))
+    assert runs[0] == runs[1]
+    assert runs[1][0] == [(1, "x"), (3, "x"), (3, "x")]
+
+
+@pytest.mark.parametrize("name", ["rx", "ry", "rz", "FrequencyAverageMeter",
+                                  "warning_log", "error_log",
+                                  "ScheduledCallback"])
+def test_public_names_match_jax(name, monkeypatch, capsys):
+    """The JAX package's public names in core/rotation.py, utils/log.py
+    and utils/callbacks.py that the port lacked: the same values, state,
+    messages and calls on the same inputs."""
+    if name in ("rx", "ry", "rz"):
+        _rotation(name)
+    elif name == "FrequencyAverageMeter":
+        _meter(monkeypatch)
+    elif name == "ScheduledCallback":
+        _scheduled(capsys)
+    else:
+        _logs(name, capsys)

@@ -7,7 +7,9 @@ no content size, no checksum).  Where ctypes finds `libzstd.so`, frames
 with a content checksum, with a content size, empty and concatenated ones
 come from libzstd itself.  The decoder's output must equal the encoder's
 input byte for byte; malformed frames must raise ValueError, in a child
-process, so that a crash fails the test instead of the test run.
+process, so that a crash fails the test instead of the test run.  The
+frames of raw blocks that `zstd.frame_raw` writes are read back by the
+port's decoder, by tensorstore's zarr driver and by libzstd.
 """
 
 import ctypes
@@ -104,6 +106,10 @@ def _libzstd():
     lib.ZSTD_compressBound.argtypes = [sz]
     lib.ZSTD_compressBound.restype = sz
     lib.ZSTD_isError.argtypes = [sz]
+    lib.ZSTD_decompress.argtypes = [p, sz, p, sz]
+    lib.ZSTD_decompress.restype = sz
+    lib.ZSTD_getFrameContentSize.argtypes = [p, sz]
+    lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
     return lib
 
 
@@ -158,6 +164,46 @@ def test_libzstd_frames(libzstd, case):
         want = a + b
         assert zstd.content_size(frame) is None   # the second has none
     assert zstd.decompress(frame).tobytes() == want
+
+
+def ts_read_chunk(tmp_path, frame: bytes, size: int) -> bytes:
+    """`frame` as the one chunk of a zarr v2 array of `size` bytes, read
+    by tensorstore's zarr driver."""
+    path = tmp_path / f"raw_{size}"
+    path.mkdir()
+    (path / ".zarray").write_text(json.dumps({
+        "zarr_format": 2, "shape": [size], "chunks": [size], "dtype": "|u1",
+        "compressor": {"id": "zstd", "level": 1}, "fill_value": None,
+        "filters": None, "order": "C"}))
+    (path / "0").write_bytes(frame)
+    arr = ts.open({"driver": "zarr", "kvstore": {"driver": "file",
+                                                 "path": str(path)}}).result()
+    return np.asarray(arr.read().result()).tobytes()
+
+
+@pytest.mark.parametrize("size", [0, 1, 128 << 10, (128 << 10) + 1,
+                                  5_000_000], ids=str)
+def test_frame_raw(tmp_path, size):
+    """`frame_raw`'s frame of `size` bytes of f32 weights: a content size,
+    no checksum, blocks of at most 128 KiB; decoded to the same bytes by
+    the port's decoder, by tensorstore (a zarr chunk; an array of 0 bytes
+    has no chunk to read) and by libzstd where ctypes finds it."""
+    data = make_data("f32", size, seed=size)
+    frame = zstd.frame_raw(data)
+    blocks = max(1, -(-size // (128 << 10)))
+    assert frame[:4] == b"\x28\xb5\x2f\xfd" and not frame[4] & 4
+    assert len(frame) == 14 + 3 * blocks + size
+    assert zstd.content_size(frame) == size
+    assert zstd.decompress(frame).tobytes() == data
+    assert zstd.frame_raw(np.frombuffer(data, np.uint8)) == frame
+    if size:
+        assert ts_read_chunk(tmp_path, frame, size) == data
+    lib = _libzstd()
+    if lib is not None:
+        assert lib.ZSTD_getFrameContentSize(frame, len(frame)) == size
+        out = ctypes.create_string_buffer(max(size, 1))
+        n = lib.ZSTD_decompress(out, len(out), frame, len(frame))
+        assert not lib.ZSTD_isError(n) and out.raw[:n] == data
 
 
 def test_content_size_of_tensorstore_frames(tmp_path):
