@@ -198,12 +198,12 @@ def scnet_fn_factory_from_checkpoint(args, layout: ChannelLayout):
     return factory, {}
 
 
-def main(argv=None):
-    args = _parse_args(argv)
+def eval_config(args) -> harness.EvalConfig:
+    """The harness configuration of parsed arguments."""
     sigma_table = np.loadtxt(args.para).reshape(-1, 4) if args.para else \
         np.tile([args.sigmaAngle1, args.sigmaAngle2, args.sigmaDist,
                  args.sigmaFeat], (3, 1))
-    cfg = harness.EvalConfig(
+    return harness.EvalConfig(
         dataset=args.family, method=args.method, exp=args.exp,
         max_iter=args.maxIter, num_repeat=args.num_repeat,
         batch_pairs=args.batch_pairs, resume=not args.rm,
@@ -211,15 +211,10 @@ def main(argv=None):
         per_step_errors=bool(args.per_step_errors),
         alter_steps_override=args.alterStep)
 
-    if args.method in harness.CLASSICAL_METHODS:
-        from relativepose_tpu_torch.cli.common import resolve_device
-        from relativepose_tpu_torch.eval import baselines
-        resolve_device(args)
-        runner = baselines.run_classical_eval(args, cfg)
-        print(json.dumps(runner.summary()))
-        return runner
 
-    pipe_cfg = PipelineConfig(
+def pipeline_config(args, cfg: harness.EvalConfig) -> PipelineConfig:
+    """The pipeline configuration of parsed arguments."""
+    return PipelineConfig(
         dataset=args.family, mask_method=args.maskMethod,
         alter_steps=cfg.alter_steps, completion=cfg.completion,
         output_type=args.outputType, snumclass=args.snumclass,
@@ -231,6 +226,21 @@ def main(argv=None):
             **{k: v for k, v in (("n_detect", args.n_detect),
                                  ("dog_threshold", args.dog_threshold))
                if v is not None}))
+
+
+def main(argv=None):
+    args = _parse_args(argv)
+    cfg = eval_config(args)
+
+    if args.method in harness.CLASSICAL_METHODS:
+        from relativepose_tpu_torch.cli.common import resolve_device
+        from relativepose_tpu_torch.eval import baselines
+        resolve_device(args)
+        runner = baselines.run_classical_eval(args, cfg)
+        print(json.dumps(runner.summary()))
+        return runner
+
+    pipe_cfg = pipeline_config(args, cfg)
     factory, scnet_params = scnet_fn_factory_from_checkpoint(
         args, pipe_cfg.layout)
     batch_fn = harness.make_batched_eval_fn(factory, cfg, pipe_cfg,

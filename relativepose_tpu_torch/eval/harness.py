@@ -163,11 +163,13 @@ def make_batched_eval_fn(scnet_fn_factory: Callable, cfg: EvalConfig,
 
     scnet_fn_factory(data_s, data_t, params) -> completion fn, with
     data_s/data_t dicts of [B, ...] tensors on `device`.  Returns
-    fn(data_s, data_t, T_gt, batch_seed, params, hp) -> dict of [B, ...]
-    numpy arrays; the keypoint draws come from a generator on `device`
-    seeded with `batch_seed`."""
+    fn(data_s, data_t, T_gt, batch_seed, params, hp, draws=None) -> dict
+    of [B, ...] numpy arrays; the keypoint draws come from a generator on
+    `device` seeded with `batch_seed`, or are given per step as `draws`
+    (`KeypointDraws` of [B, ...] tensors, e.g. the JAX package's)."""
 
-    def eval_batch(data_s, data_t, T_gt, batch_seed, params, hp):
+    def eval_batch(data_s, data_t, T_gt, batch_seed, params, hp,
+                   draws=None):
         ds = as_pair_batch(data_s, device)
         dt = as_pair_batch(data_t, device)
         T_gt = torch.as_tensor(T_gt, dtype=torch.float32, device=device)
@@ -175,7 +177,8 @@ def make_batched_eval_fn(scnet_fn_factory: Callable, cfg: EvalConfig,
         with torch.no_grad():
             T_hat, step_ts = estimate_pose_via_completion(
                 scnet_fn_factory(ds, dt, params), ds, dt, hp, pipe_cfg,
-                generator=gen, return_step_poses=True, device=device)
+                generator=gen, draws=draws, return_step_poses=True,
+                device=device)
             pc_s, val_s, _ = parse_eval_data(
                 ds["depth"], ds["rgb"], ds["norm"], cfg.dataset, cfg.method)
             pc_t, val_t, _ = parse_eval_data(

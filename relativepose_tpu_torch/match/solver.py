@@ -138,8 +138,11 @@ def _spectral_eigvec(W, h, cfg):
 
 
 def _rowsum_rank1(W, u):
-    """Row sums of W o (u u^T): u * (W u)."""
-    return u * (W @ u[..., None])[..., 0]
+    """Row sums of W o (u u^T): u * (W u).  W u is the first column of
+    W @ [u, u]: torch's CPU matmul sums a single column in an order that
+    depends on the batch, two columns in the same order for every batch,
+    so a pair's result does not depend on the pairs beside it."""
+    return u * (W @ torch.stack([u, u], dim=-1))[..., 0]
 
 
 def _rotate(x, R):

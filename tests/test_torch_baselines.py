@@ -16,6 +16,7 @@ import pytest
 
 from relativepose_tpu.cli import evaluate as jcli
 from relativepose_tpu_torch.cli import evaluate as tcli
+from torch_parity import one_torch_thread  # noqa: F401
 
 OVERLAP = ("overlap", "cam_dist", "pc_dist", "pc_nn")
 ERRORS = ("err_ad", "err_blind", "err_t", "err_t_blind", "err_t_id")

@@ -31,6 +31,7 @@ from relativepose_tpu_torch.models.scnet import SCNet
 from relativepose_tpu_torch.utils import orbax_read
 from relativepose_tpu_torch.utils import torch_import as tti
 from test_torch_import import _randomize, _TorchResnet18_8s, _TorchSCNet
+from torch_parity import one_torch_thread  # noqa: F401
 
 NGF, WIDTH = 16, 16
 

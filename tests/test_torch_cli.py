@@ -25,6 +25,7 @@ from relativepose_tpu_torch.cli import evaluate as tcli
 from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.utils.checkpoint import load_params_npz as tload
 from torch_parity import flax_scnet_params
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DETERMINISTIC = ("overlap", "cam_dist", "err_blind", "err_t_id")

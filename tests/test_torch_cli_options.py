@@ -15,6 +15,7 @@ import numpy as np
 
 from relativepose_tpu.cli import evaluate as jcli
 from relativepose_tpu_torch.cli import evaluate as tcli
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

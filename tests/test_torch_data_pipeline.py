@@ -30,6 +30,7 @@ from torch_parity import (
     jax_pair_draws,
     synthetic_pair_arrays,
 )
+from torch_parity import one_torch_thread  # noqa: F401
 
 VALUE_TOL = 1e-6
 

@@ -13,6 +13,7 @@ import torch
 
 from relativepose_tpu.eval import descriptor_eval as jde
 from relativepose_tpu_torch.eval import descriptor_eval as tde
+from torch_parity import one_torch_thread  # noqa: F401
 
 H, W, C, N, K, S = 24, 40, 8, 3, 50, 30
 

@@ -22,6 +22,7 @@ from relativepose_tpu.eval import harness as jh
 from relativepose_tpu_torch.core import overlap as toverlap
 from relativepose_tpu_torch.data import datasets as tdsets
 from relativepose_tpu_torch.eval import harness as th
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -58,8 +58,6 @@ from torch_parity import (
 from test_torch_train import assert_grads, flat
 from torch_parity import one_torch_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
 LR = 1e-5
 METRIC_RTOL = 1e-2
 

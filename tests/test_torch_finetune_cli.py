@@ -40,6 +40,7 @@ from relativepose_tpu_torch.utils.checkpoint import (
 )
 from test_torch_orbax import assert_same_tree
 from torch_parity import SMALL, flax_scnet_params
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def test_cli_runs_and_writes_an_npz_both_packages_read(tmp_path,

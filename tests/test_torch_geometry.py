@@ -28,6 +28,7 @@ from relativepose_tpu_torch.core import warp as twarp
 from relativepose_tpu_torch.data import synthetic as tsyn
 from relativepose_tpu_torch.ops import eig4x4 as teig
 from relativepose_tpu_torch.pipeline.recurrent import make_view as tmake_view
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # f32 sums in another order, values of order 1
 

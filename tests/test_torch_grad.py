@@ -33,8 +33,6 @@ from relativepose_tpu_torch.ops import eig4x4 as teig
 from test_match_solver import make_scene
 from torch_parity import one_torch_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
 GRAD_KEYS = ("feat", "pc", "normal")
 
 

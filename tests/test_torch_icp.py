@@ -20,6 +20,7 @@ from relativepose_tpu.ops import icp as jicp
 from relativepose_tpu_torch.core.rotation import angular_distance
 from relativepose_tpu_torch.data import synthetic
 from relativepose_tpu_torch.ops import icp as ticp
+from torch_parity import one_torch_thread  # noqa: F401
 
 H, W = 160, 640
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from relativepose_tpu.models import SCNet, Resnet18_8s, SegmentationHead
 from relativepose_tpu.utils import torch_import as ti
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _randomize(module, seed):

@@ -21,6 +21,7 @@ from relativepose_tpu_torch.match import primitives as tprim
 from relativepose_tpu_torch.ops import interpolate as tinterp
 from relativepose_tpu_torch.ops import sampling as tsamp
 from torch_parity import batch_draws, jax_choice, jax_keypoint_draws
+from torch_parity import one_torch_thread  # noqa: F401
 
 SMALL = dict(n_detect=32, n_match=16, n_random=8)
 

@@ -26,6 +26,7 @@ from relativepose_tpu_torch.data import synthetic
 from relativepose_tpu_torch.match import keypoints as tkp
 from relativepose_tpu_torch.match import primitives as tprim
 from torch_parity import batch_draws, jax_keypoint_draws
+from torch_parity import one_torch_thread  # noqa: F401
 
 SMALL = dict(n_detect=32, n_match=16, n_random=8)
 FACE = config.FACE

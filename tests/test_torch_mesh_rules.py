@@ -11,6 +11,7 @@ from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.models.resnet import Resnet18_8s
 from relativepose_tpu_torch.models.scnet import SCNet
 from relativepose_tpu_torch.train import mesh, mesh_dryrun
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def _jax_sharded(tree, model_parallel):

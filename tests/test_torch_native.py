@@ -22,6 +22,7 @@ from scipy.spatial.transform import Rotation as SR
 from relativepose_tpu.native import registration as jreg
 from relativepose_tpu_torch.native import registration as treg
 from test_native import box_cloud, rot_err
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -48,6 +48,7 @@ from relativepose_tpu_torch.utils.ocdbt import OcdbtReader
 from orbax_fixture import FIXTURE, MANIFEST, leaf_digests
 from test_torch_cli import cli_args
 from torch_parity import flax_scnet_params
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRETRAINED = os.path.join(REPO, "relativepose_tpu", "data", "pretrained",

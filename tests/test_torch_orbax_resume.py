@@ -47,6 +47,7 @@ from test_torch_train import (  # noqa: F401  (batches: a fixture)
     to_jax,
     to_torch,
 )
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 def assert_resumed(state_t, state_j):

@@ -187,7 +187,6 @@ def test_best_score_matches_jax():
     np.testing.assert_array_equal(Tg[1 - low], T.numpy()[1 - low])
 
 
-@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("kw", [dict(remat=True),
                                 dict(remat=True, dataset="scannet",
                                      mask_method="kinect"),

@@ -17,6 +17,7 @@ from relativepose_tpu_torch.match.solver import SolverHyperParams
 from relativepose_tpu_torch.pipeline import recurrent as trec
 from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
 from torch_parity import configs, pairs, run_oracle_both
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dataset, seeds", [("matterport", [29, 30]),

@@ -11,6 +11,7 @@ from scipy.spatial.transform import Rotation as ScipyRot
 
 from relativepose_tpu.core import quaternion as jq
 from relativepose_tpu_torch.core import quaternion as tq
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 

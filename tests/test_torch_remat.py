@@ -13,7 +13,6 @@ from a fixed torch seed, on two synthetic suncg pairs.
 """
 
 import numpy as np
-import pytest
 import torch
 
 from relativepose_tpu_torch.models.scnet import SCNet
@@ -22,8 +21,6 @@ from relativepose_tpu_torch.train import finetune_pose as tft
 from test_torch_finetune import pipe_configs, sigma_tables
 from torch_parity import one_torch_thread  # noqa: F401
 from torch_parity import pairs
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def small_pairs():

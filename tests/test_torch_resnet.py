@@ -23,6 +23,7 @@ from relativepose_tpu.utils.checkpoint import load_params_npz as jload
 from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.models.resnet import Resnet18_8s, SegmentationHead
 from relativepose_tpu_torch.utils.checkpoint import load_params_npz
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 SHIPPED = os.path.join(os.path.dirname(__file__), "..", "relativepose_tpu",

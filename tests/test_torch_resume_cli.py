@@ -24,6 +24,7 @@ from relativepose_tpu_torch.train import completion as tcomp
 from relativepose_tpu_torch.train import feature as tfeat
 from relativepose_tpu_torch.utils.checkpoint import restore_params
 from test_torch_train_cli import small
+from torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

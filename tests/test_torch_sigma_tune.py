@@ -53,8 +53,6 @@ from torch_parity import (
 )
 from torch_parity import one_torch_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
 SIGMA0 = [0.2615, 0.2615, 0.04, 0.01]
 TOY_CFG = dict(top_k=3, power_iters=10)
 

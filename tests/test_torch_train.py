@@ -47,6 +47,7 @@ from relativepose_tpu_torch.train import completion as tcomp
 from relativepose_tpu_torch.train import feature as tfeat
 from relativepose_tpu_torch.train import losses as tl
 from torch_parity import synthetic_pair_arrays
+from torch_parity import one_torch_thread  # noqa: F401
 
 METRIC_RTOL, METRIC_ATOL = 1e-4, 1e-6
 SECOND_RTOL = 1e-3   # a second step's metrics: its parameters differ

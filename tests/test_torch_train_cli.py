@@ -4,16 +4,20 @@ packages.
 Both drivers run at a small size (`--device cpu --bf16 0 --ngf 8
 --base_width 8 --debug --max_epoch 1 --train_duration 2`, 2 pairs per
 batch) on the synthetic debug set, rendered once for the module.  The
+trainer's clock is `OneStepClock`: each time-boxed phase takes one
+step, so the checkpoints are the same on any machine.  The
 orbax checkpoint the port saves (`experiments/exp_<name>/params/
 checkpoint_%04d/`) loads into the JAX package's `restore_params` and Flax
 modules, and an npz the JAX package saves loads into the port; the
 outputs of both packages on the loaded weights agree within 1e-4 (f32
-sums in another order; the weights are the same on both sides).
+sums in another order; the weights are the same on both sides), SCNet's
+each within 1e-4 of its f64 evaluation.
 """
 
 import json
 import math
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -31,12 +35,14 @@ from relativepose_tpu_torch.cli import train_completion, train_feature
 from relativepose_tpu_torch.models import convert
 from relativepose_tpu_torch.models.resnet import Resnet18_8s
 from relativepose_tpu_torch.models.scnet import SCNet
-from relativepose_tpu_torch.utils import orbax_read
+from relativepose_tpu_torch.utils import orbax_read, trainer
 from relativepose_tpu_torch.utils.checkpoint import (
     load_params_npz,
     restore_params,
 )
 from test_torch_orbax import assert_same_tree
+from torch_parity import flax_f64
+from torch_parity import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 SMALL = ["--device", "cpu", "--bf16", "0", "--ngf", "8", "--base_width",
@@ -48,20 +54,41 @@ def small(*extra, max_epoch=1):
     return SMALL + ["--max_epoch", str(max_epoch)] + list(extra)
 
 
+class OneStepClock:
+    """`time.time` of `utils/trainer.py` in this module: every time-boxed
+    phase takes one step, whatever its budget and however fast the
+    machine.  A phase reads the clock at its start and before each step;
+    here the first reading after the start is 1 ms later, the second
+    1e5 s later.
+
+    On the wall clock the step count, and so the weights, depended on the
+    machine's speed, and so did the outcome of the SCNet comparison of
+    `test_port_checkpoints_load_in_jax` while it held the two packages'
+    outputs to each other: with `--train_duration 8` (5 feature and 3
+    completion steps) 1 of 11,059,200 values was 1.18e-4 apart, against
+    1e-4, though each package was within 6.7e-5 (the port) and 5.1e-5
+    (the JAX package) of the f64 evaluation."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self):
+        phase, k = divmod(self.n, 3)   # start, one step, stop
+        self.n += 1
+        return phase * 1e6 + (0.0, 1e-3, 1e5)[k]
+
+
 @pytest.fixture(scope="module")
 def workdir(tmp_path_factory):
-    """A working directory whose synthetic pairs are rendered once."""
+    """A working directory whose synthetic pairs are rendered once, with
+    the trainer on `OneStepClock`."""
     root = tmp_path_factory.mktemp("train_cli")
-    old_env = os.environ.get("RPTPU_SYNTH_CACHE")
-    os.environ["RPTPU_SYNTH_CACHE"] = str(root / "pairs")
-    cwd = os.getcwd()
-    os.chdir(root)
-    yield root
-    os.chdir(cwd)
-    if old_env is None:
-        os.environ.pop("RPTPU_SYNTH_CACHE", None)
-    else:
-        os.environ["RPTPU_SYNTH_CACHE"] = old_env
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RPTPU_SYNTH_CACHE", str(root / "pairs"))
+        mp.chdir(root)
+        mp.setattr(trainer, "time",
+                   types.SimpleNamespace(time=OneStepClock()))
+        yield root
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +158,15 @@ def test_completion_cli_with_feature_checkpoint(comp_ckpt):
 def test_port_checkpoints_load_in_jax(feat_ckpt, comp_ckpt, rng):
     """The port's feature and completion checkpoints through the JAX
     package's `restore_params` (every leaf bit for bit as the port reads
-    it) and Flax modules."""
+    it) and Flax modules.  Resnet18_8s's outputs agree within TOL.
+    SCNet's are each held within TOL of the f64 evaluation of the same
+    weights (`torch_parity.flax_f64`), as `tests/test_torch_scnet.py`
+    bounds each package's f32 error: its 1x1 bottleneck's BatchNorm
+    normalises 2 values per channel and amplifies each package's f32
+    rounding, in either direction.  On this module's
+    weights the port's f32 output is 6.0e-5 from the f64 one at most and
+    the JAX package's 6.4e-5, the two 1.2e-4 apart (11 of 11,059,200
+    values over 1e-4)."""
     feat, comp = os.path.dirname(feat_ckpt), os.path.dirname(comp_ckpt)
     for d in (feat, comp):
         assert_same_tree(restore_params(d), jrestore(d))
@@ -148,9 +183,11 @@ def test_port_checkpoints_load_in_jax(feat_ckpt, comp_ckpt, rng):
                                      restore_params(comp)["params"])
     yj = FlaxSCNet(ngf=8).apply({"params": jrestore(comp)["params"]},
                                 jnp.asarray(x16))
+    y64 = flax_f64(FlaxSCNet(ngf=8), jrestore(comp)["params"], x16)
     with torch.no_grad():
         np.testing.assert_allclose(scnet(torch.from_numpy(x16)).numpy(),
-                                   np.asarray(yj), atol=TOL)
+                                   y64, atol=TOL)
+    np.testing.assert_allclose(np.asarray(yj), y64, atol=TOL)
 
 
 def test_jax_checkpoint_trains_port_completion(workdir, rng):

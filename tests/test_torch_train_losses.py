@@ -18,6 +18,7 @@ import torch
 
 from relativepose_tpu.train import losses as jl
 from relativepose_tpu_torch.train import losses as tl
+from torch_parity import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 N, H, W, C, K = 2, 24, 48, 8, 50

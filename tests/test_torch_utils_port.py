@@ -18,6 +18,7 @@ from relativepose_tpu_torch.utils import img as timg
 from relativepose_tpu_torch.utils import plot as tplot
 from relativepose_tpu_torch.utils import profiling
 from relativepose_tpu_torch.utils import visualization as tvis
+from torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -2,6 +2,8 @@
 relativepose_tpu: numpy inputs go to both packages, and the JAX package's
 random draws are handed to the port."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,12 +28,17 @@ from relativepose_tpu_torch.pipeline import recurrent as trec
 from relativepose_tpu_torch.pipeline.oracle import make_oracle_completion_fn
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    """Torch on one CPU thread during the test.  The tier-1 run puts 6
-    test workers on the machine's cores, and torch's thread pool in each
-    oversubscribes them: the pipeline's small ops then ran 20x slower
-    than alone (one thread costs them 1.4x alone)."""
+    """Torch on one CPU thread in the test module that imports this
+    fixture, its module fixtures included.  The tier-1 run puts 6 test
+    workers on the machine's 8 cores, and torch's thread pool in each
+    oversubscribes them: the pipeline's small ops ran 20x slower than
+    alone (one thread costs them 1.4x alone), and the whole tier-1 run
+    took 1297 s with torch's default threads against 693 s with
+    OMP_NUM_THREADS=1 (on an 8-core CPU).  The modules of
+    `train/mesh.py`'s spawned ranks keep the default: their ranks set
+    their own thread counts."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -85,6 +92,26 @@ def jax_pipeline_draws(keys, alter_steps, det_s_valid, det_t_valid, cfg,
             steps[s].append(jax_keypoint_draws(
                 sk, det_s_valid[b], det_t_valid[b], cfg, mask_method))
     return [batch_draws(p) for p in steps]
+
+
+def flax_f64(net, params, x):
+    """A Flax module of the JAX package (SCNet, Resnet18_8s) evaluated in
+    f64 on the CPU: parameters and input in f64 under `jax.enable_x64`,
+    and the `float32` that `relativepose_tpu/models/blocks.py::
+    BatchNorm2d` casts its input to rebound to float64 for the call.
+    Without that rebinding its statistics stay f32: the shipped trained
+    SCNet's output is then 1.9e-5 relative L2 from the f64 function, as
+    far as its f32 output (2.1e-5)."""
+    from relativepose_tpu.models import blocks
+    f64 = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
+                                   if not k.startswith("__")})
+    f64.float32 = jnp.float64
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(blocks, "jnp", f64)
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), params)
+        y = net.apply({"params": p64}, jnp.asarray(x, jnp.float64))
+        assert y.dtype == jnp.float64
+        return np.asarray(y)
 
 
 def flax_scnet_params(net, seed=0):
